@@ -1,0 +1,153 @@
+"""Flatten/partition/pack model parameters for selective HE.
+
+The FL/HE boundary works on one flat float32 vector per model.  Parameters
+are nested dicts (or lists/tuples) of tensors, flattened in JAX's pytree
+order, where a dict's leaves come in sorted-key order: a mask then means the
+same parameters in both packages.  The mask partition is kept as a boolean
+tensor on the vector's device; splitting and merging are masked gathers and
+scatters there.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatSpec:
+    """Shape bookkeeping for nested-params <-> flat-vector round trips.
+
+    `structure` mirrors the params with every leaf replaced by its index in
+    the flat order."""
+
+    structure: object
+    shapes: tuple[tuple[int, ...], ...]
+    dtypes: tuple[torch.dtype, ...]
+    sizes: tuple[int, ...]
+    offsets: tuple[int, ...]   # start offset of each leaf in the flat vector
+
+    @property
+    def total(self) -> int:
+        return self.offsets[-1] + self.sizes[-1] if self.sizes else 0
+
+
+def _flatten(tree, leaves: list):
+    """Leaves of `tree` in JAX pytree order, and the tree with each leaf
+    replaced by its index."""
+    if isinstance(tree, dict):
+        return {k: _flatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_flatten(t, leaves) for t in tree)
+    leaves.append(tree)
+    return len(leaves) - 1
+
+
+def _unflatten(structure, leaves):
+    if isinstance(structure, dict):
+        return {k: _unflatten(v, leaves) for k, v in structure.items()}
+    if isinstance(structure, (list, tuple)):
+        return type(structure)(_unflatten(s, leaves) for s in structure)
+    return leaves[structure]
+
+
+def tree_leaves(params) -> list:
+    """Leaves in JAX pytree order (sorted dict keys)."""
+    leaves: list = []
+    _flatten(params, leaves)
+    return leaves
+
+
+def make_flat_spec(params) -> FlatSpec:
+    leaves: list = []
+    structure = _flatten(params, leaves)
+    shapes = tuple(tuple(l.shape) for l in leaves)
+    sizes = tuple(math.prod(s) for s in shapes)
+    offsets = tuple(itertools.accumulate(sizes, initial=0))[:-1]
+    return FlatSpec(structure=structure, shapes=shapes,
+                    dtypes=tuple(l.dtype for l in leaves), sizes=sizes,
+                    offsets=offsets)
+
+
+def flatten_params(params):
+    """params -> (float32[P] on the leaves' device, FlatSpec)."""
+    spec = make_flat_spec(params)
+    vec = torch.cat([l.reshape(-1).to(torch.float32)
+                     for l in tree_leaves(params)])
+    return vec, spec
+
+
+def unflatten_params(vec, spec: FlatSpec):
+    """float32[P] -> params with spec's structure, shapes and dtypes."""
+    leaves = [vec[off:off + size].reshape(shape).to(dt)
+              for off, size, shape, dt in zip(spec.offsets, spec.sizes,
+                                              spec.shapes, spec.dtypes)]
+    return _unflatten(spec.structure, leaves)
+
+
+# ---------------------------------------------------------------------------
+# mask partition
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MaskPartition:
+    """A boolean mask splitting a flat vector into an encrypted part (in
+    index order, zero-padded to whole slot blocks) and a plaintext part."""
+
+    mask: torch.Tensor       # bool[P]
+    n_enc: int
+    slots: int
+
+    @property
+    def n_total(self) -> int:
+        return int(self.mask.numel())
+
+    @property
+    def n_plain(self) -> int:
+        return self.n_total - self.n_enc
+
+    @property
+    def enc_idx(self) -> torch.Tensor:
+        return torch.nonzero(self.mask).reshape(-1)
+
+    @property
+    def plain_idx(self) -> torch.Tensor:
+        return torch.nonzero(~self.mask).reshape(-1)
+
+    @property
+    def n_chunks(self) -> int:
+        return max(1, -(-self.n_enc // self.slots))
+
+    @property
+    def n_enc_padded(self) -> int:
+        return self.n_chunks * self.slots
+
+    @property
+    def ratio(self) -> float:
+        return self.n_enc / max(1, self.n_total)
+
+
+def make_partition(mask, slots: int) -> MaskPartition:
+    mask = torch.as_tensor(mask, dtype=torch.bool).reshape(-1)
+    return MaskPartition(mask=mask, n_enc=int(mask.sum()), slots=int(slots))
+
+
+def split_by_mask(vec, part: MaskPartition):
+    """float32[P] -> (enc float32[n_chunks, slots] zero-padded,
+    plain float32[n_plain])."""
+    mask = part.mask.to(vec.device)
+    enc = torch.zeros(part.n_enc_padded, dtype=vec.dtype, device=vec.device)
+    enc[: part.n_enc] = vec[mask]
+    return enc.reshape(part.n_chunks, part.slots), vec[~mask]
+
+
+def merge_by_mask(enc_chunks, plain, part: MaskPartition):
+    """Inverse of split_by_mask -> float32[P]."""
+    mask = part.mask.to(plain.device)
+    out = torch.zeros(part.n_total, dtype=torch.float32, device=plain.device)
+    out[mask] = enc_chunks.reshape(-1)[: part.n_enc].to(torch.float32)
+    out[~mask] = plain.to(torch.float32)
+    return out

@@ -1,0 +1,62 @@
+"""Carry state between the JAX package and this port.
+
+The JAX package holds residues as u32 arrays; the port holds them as int32
+tensors with the same bits.  These functions take and give numpy arrays
+(`np.asarray` of JAX outputs), so this module imports no JAX: keys,
+ciphertexts and context primes cross over unchanged.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.ckks.cipher import Ciphertext
+from repro_torch.core.ckks.params import CkksContext
+
+
+def residues_from_np(arr, device) -> torch.Tensor:
+    """u32 numpy residues -> int32 tensor (same bits) on `device`."""
+    a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def residues_to_np(t: torch.Tensor) -> np.ndarray:
+    """int32 tensor -> u32 numpy residues (same bits)."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"expected int32 residues, got {t.dtype}")
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def keys_from_np(keys: dict, device) -> dict:
+    """sk {"s_mont"} or pk {"pk0_mont", "pk1_mont"} dict of u32 arrays ->
+    the port's dict of int32 tensors."""
+    return {k: residues_from_np(v, device) for k, v in keys.items()}
+
+
+def keys_to_np(keys: dict) -> dict:
+    return {k: residues_to_np(v) for k, v in keys.items()}
+
+
+def ciphertext_from_np(data, scale: float, device) -> Ciphertext:
+    """A JAX `Ciphertext`'s u32 data [..., L, 2, N] and scale -> the port's
+    `Ciphertext`."""
+    return Ciphertext(data=residues_from_np(data, device), scale=float(scale))
+
+
+def ciphertext_to_np(ct: Ciphertext) -> tuple[np.ndarray, float]:
+    """-> (u32 data, scale), the fields of a JAX `Ciphertext`."""
+    return residues_to_np(ct.data), float(ct.scale)
+
+
+def check_context(ctx: CkksContext, primes, n_poly: int | None = None,
+                  delta_bits: int | None = None) -> None:
+    """Raise unless `ctx` has the JAX context's primes (and N and delta
+    where given): only then are residues meaningful across."""
+    primes = tuple(int(q) for q in primes)
+    if ctx.primes != primes:
+        raise ValueError(f"context primes differ: {ctx.primes} vs {primes}")
+    if n_poly is not None and ctx.n_poly != int(n_poly):
+        raise ValueError(f"context N differs: {ctx.n_poly} vs {n_poly}")
+    if delta_bits is not None and ctx.delta_bits != int(delta_bits):
+        raise ValueError(f"context delta differs: 2^{ctx.delta_bits} vs "
+                         f"2^{delta_bits}")

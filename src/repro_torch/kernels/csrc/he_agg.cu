@@ -1,0 +1,66 @@
+// Fused encrypted FedAvg: sum_c w_c (*) ct_c mod q_l over the client axis,
+// for Hopper (sm_90a), all RNS limbs in one launch.
+//
+// Replaces: src/repro/kernels/he_agg.py `_agg_body` /
+// `he_weighted_sum_fused` (the server's aggregation).
+//
+// Layout: cts is a contiguous u32[C, E] stack of C client tensors of E
+// elements each; out is u32[E].  The element's limb is
+// (idx >> log_inner) % L, where inner is the number of elements per limb
+// step: N for the ops layout [..., L, N], 2N for ciphertexts [..., L, 2, N].
+// So the kernel reads ciphertexts in their own layout and no relayout copy
+// of the limb axis is ever made.  w is u32[C, L] Montgomery weights.
+//
+// Bound: device memory.  One thread per output element loops over the C
+// clients, reading each ciphertext element once and writing the sum once:
+// (C + 1) * 4 bytes per element against C Montgomery products.  Modular sums
+// are exact, so the client order changes no bit.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mont.cuh"
+
+namespace {
+
+__global__ void weighted_sum_kernel(uint32_t* __restrict__ out,
+                                    const uint32_t* __restrict__ cts,
+                                    const uint32_t* __restrict__ w,
+                                    const uint32_t* __restrict__ qs,
+                                    const uint32_t* __restrict__ qinv,
+                                    long long per_client, int n_clients,
+                                    int n_limbs, int log_inner) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < per_client; idx += step) {
+    const unsigned limb =
+        (unsigned)(idx >> log_inner) % (unsigned)n_limbs;
+    const uint32_t q = qs[limb];
+    const uint32_t qi = qinv[limb];
+    uint32_t acc = mont_mul(cts[idx], w[limb], q, qi);
+    for (int c = 1; c < n_clients; ++c)
+      acc = mod_add(acc,
+                    mont_mul(cts[c * per_client + idx], w[c * n_limbs + limb],
+                             q, qi),
+                    q);
+    out[idx] = acc;
+  }
+}
+
+}  // namespace
+
+// cts: contiguous u32[C, per_client]; w: contiguous u32[C, L]; out:
+// u32[per_client].  limb = (idx >> log_inner) % L.
+extern "C" int weighted_sum_launch(uint32_t* out, const uint32_t* cts,
+                                   const uint32_t* w, const uint32_t* qs,
+                                   const uint32_t* qinv, long long per_client,
+                                   int n_clients, int n_limbs, int log_inner,
+                                   void* stream) {
+  const int threads = 256;
+  long long blocks = (per_client + threads - 1) / threads;
+  if (blocks > (1LL << 30)) blocks = 1LL << 30;
+  weighted_sum_kernel<<<(unsigned)blocks, threads, 0,
+                        (cudaStream_t)stream>>>(out, cts, w, qs, qinv,
+                                                per_client, n_clients, n_limbs,
+                                                log_inner);
+  return (int)cudaGetLastError();
+}

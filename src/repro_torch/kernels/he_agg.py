@@ -1,0 +1,59 @@
+"""Fused encrypted FedAvg aggregation over all RNS limbs, one CUDA launch.
+
+The server hot loop of the paper is  sum_i alpha_i * [[W_i]]  over client
+ciphertexts.  Wrapper over `csrc/he_agg.cu` (which replaces the JAX
+package's Pallas `he_weighted_sum_fused`): each ciphertext element is read
+once and the weighted sum is written once.  The kernel reads the stacked
+client tensors in their own layout, with the limb axis either at -2 (the
+ops layout [C, ..., L, N]) or at -3 (ciphertexts [C, ..., L, 2, N]), so no
+relayout copy is made.  On a CPU tensor the wrapper runs the plain version
+in `ref.py`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import build as _build
+from repro_torch.kernels import ref as _ref
+
+
+def he_weighted_sum_fused(cts, w_mont, qs, qinv_negs, limb_axis: int = -2):
+    """sum_i w_i (*) ct_i mod q_l over the leading client axis.
+
+    cts: int32[C, ..., L, ...] with the limb axis at `limb_axis` (-2 or -3);
+    w_mont: int32[C, L]; qs, qinv_negs: int32[L].  Returns int32 of shape
+    cts.shape[1:]."""
+    if cts.device.type == "cpu":
+        return _ref.he_weighted_sum_fused(cts, w_mont, qs, qinv_negs,
+                                          limb_axis)
+    _build.require_cuda("weighted_sum", cts)
+    if limb_axis not in (-2, -3) or cts.dim() < 1 - limb_axis:
+        raise ValueError(f"weighted_sum: limb_axis {limb_axis} does not fit "
+                         f"cts {tuple(cts.shape)}")
+    c, l = cts.shape[0], cts.shape[limb_axis]
+    inner = math.prod(cts.shape[limb_axis + 1:])
+    log_inner = _build.log2_exact(inner, "weighted_sum: elements per limb")
+    _build.check_int32("weighted_sum cts", cts, cts.device)
+    _build.check_int32("weighted_sum w_mont", w_mont, cts.device)
+    if tuple(w_mont.shape) != (c, l):
+        raise ValueError(f"weighted_sum: w_mont {tuple(w_mont.shape)} != "
+                         f"({c}, {l})")
+    for name, t in (("qs", qs), ("qinv_negs", qinv_negs)):
+        _build.check_int32(f"weighted_sum {name}", t, cts.device)
+        if t.shape != (l,):
+            raise ValueError(f"weighted_sum: {name} {tuple(t.shape)} != "
+                             f"({l},)")
+    out = torch.empty(cts.shape[1:], dtype=torch.int32, device=cts.device)
+    per_client = out.numel()
+    if per_client >> log_inner >= 1 << 32:
+        raise ValueError("weighted_sum: more than 2**32 limb rows")
+    if per_client and c:
+        _build.launch("he_agg", "weighted_sum_launch", out, cts, w_mont, qs,
+                      qinv_negs, per_client, c, l, log_inner)
+        he_weighted_sum_fused.launches += 1
+    return out
+
+
+he_weighted_sum_fused.launches = 0

@@ -1,0 +1,120 @@
+"""Public HE ops over int32[..., L, N] residues, with the JAX package's names
+and layouts.
+
+RNS limbs are a batch dimension: every op consumes the whole [..., L, N]
+tensor in one call.  Per-limb constants come from the context's device
+tables (`CkksContext.device_tables`), sliced to the input's limb count, so
+limb-dropped ciphertexts work unchanged.
+
+The four ops with a kernel (`ntt_fwd`, `ntt_inv`, `mul_add`,
+`weighted_sum`) go to their wrappers, which launch the CUDA kernel for a
+CUDA tensor and run the plain version for a CPU tensor: the device decides,
+there is no backend switch.  The limb-wise helpers (`mod_add`, `mod_sub`,
+`mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of their own
+and are plain torch ops.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import he_agg as _he_agg
+from repro_torch.kernels import ntt as _ntt
+from repro_torch.kernels import pointwise as _pointwise
+from repro_torch.kernels import ref as _ref
+
+# op name -> the wrapper whose `launches` counts its kernel
+KERNELS = {
+    "ntt_fwd": _ntt.ntt_fwd_fused,
+    "ntt_inv": _ntt.ntt_inv_fused,
+    "mul_add": _pointwise.mul_add_fused,
+    "weighted_sum": _he_agg.he_weighted_sum_fused,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per op since the last reset."""
+    return {op: fn.launches for op, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _tables(ctx, l: int):
+    """ctx's device tables sliced to the first l limbs."""
+    return ctx.device_tables.take(l)
+
+
+def _qcol(t):
+    return t.qs[:, None]
+
+
+# ---------------------------------------------------------------------------
+# ops with a kernel
+# ---------------------------------------------------------------------------
+
+
+def ntt_fwd(x, ctx):
+    """Forward negacyclic NTT: int32[..., L, N] natural order ->
+    bit-reversed NTT domain, every limb in one launch."""
+    t = _tables(ctx, x.shape[-2])
+    return _ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)
+
+
+def ntt_inv(x, ctx):
+    """Inverse negacyclic NTT: bit-reversed NTT domain -> natural order."""
+    t = _tables(ctx, x.shape[-2])
+    return _ntt.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                              t.qinv_negs)
+
+
+def mul_add(x, y_mont, z, ctx):
+    """Fused x (*) y_mont + z.  y_mont (Montgomery form) and z broadcast to
+    x's shape [..., L, N] without being copied."""
+    t = _tables(ctx, x.shape[-2])
+    return _pointwise.mul_add_fused(x, y_mont, z, t.qs, t.qinv_negs)
+
+
+def weighted_sum(cts, w_mont, ctx, limb_axis: int = -2):
+    """FedAvg aggregation: sum_i w_i (*) ct_i over the leading axis.
+
+    cts: int32[C, ..., L, N] (or, with limb_axis=-3, ciphertext data
+    int32[C, ..., L, 2, N]); w_mont: int32[C, L'] Montgomery weights with
+    L' >= L, on cts's device.  Returns cts.shape[1:]."""
+    l = cts.shape[limb_axis]
+    t = _tables(ctx, l)
+    return _he_agg.he_weighted_sum_fused(cts, w_mont[:, :l].contiguous(),
+                                         t.qs, t.qinv_negs, limb_axis)
+
+
+# ---------------------------------------------------------------------------
+# limb-wise helpers with no kernel (plain torch ops)
+# ---------------------------------------------------------------------------
+
+
+def mod_add(a, b, ctx):
+    return _ref.mod_add(a, b, _qcol(_tables(ctx, a.shape[-2])))
+
+
+def mod_sub(a, b, ctx):
+    return _ref.mod_sub(a, b, _qcol(_tables(ctx, a.shape[-2])))
+
+
+def mod_neg(a, ctx):
+    return _ref.mod_neg(a, _qcol(_tables(ctx, a.shape[-2])))
+
+
+def to_mont(a, ctx):
+    t = _tables(ctx, a.shape[-2])
+    return _ref.mont_mul(a, t.r2s[:, None], _qcol(t), t.qinv_negs[:, None])
+
+
+def from_mont(a, ctx):
+    t = _tables(ctx, a.shape[-2])
+    return _ref.mont_mul(a, torch.ones_like(a), _qcol(t), t.qinv_negs[:, None])
+
+
+def mont_mul(a, b_mont, ctx):
+    t = _tables(ctx, a.shape[-2])
+    return _ref.mont_mul(a, b_mont, _qcol(t), t.qinv_negs[:, None])

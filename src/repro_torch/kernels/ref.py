@@ -1,0 +1,148 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Residues are `torch.int32` tensors holding values in [0, q) with q < 2**30,
+so each int32 value equals the u32 value the JAX package carries.  The one
+full-range constant, -q^{-1} mod 2**32, arrives as an int32 with the u32's
+bits and is widened with `& 0xFFFFFFFF`.
+
+Montgomery products are computed in int64: t = a*b < 2**60, m = t*(-q^{-1})
+mod 2**32 through a 16-bit split of the constant (each partial product stays
+below 2**48), and t + m*q < 2**63.  Every result is reduced to its canonical
+value in [0, q), so it equals the JAX package's 16-bit-split `ref.mont_mul`
+bit for bit.  The CUDA kernels compute the same values with 64-bit unsigned
+products (kernels/csrc/mont.cuh); these versions are what the wrappers run on
+CPU tensors and what the kernels are held against on the card.
+
+Conventions follow the JAX package: data polynomials in normal form,
+operators (keys, weights, twiddles) in Montgomery form, NTT domain
+bit-reversed.
+"""
+from __future__ import annotations
+
+import torch
+
+_M32 = 0xFFFFFFFF
+_M16 = 0xFFFF
+
+
+def _u32(x):
+    """int32 bits -> the u32 value as int64."""
+    return x.to(torch.int64) & _M32
+
+
+# ---------------------------------------------------------------------------
+# Montgomery core
+# ---------------------------------------------------------------------------
+
+
+def mont_mul(a, b, q, qinv_neg):
+    """REDC(a*b) = a*b*R^{-1} mod q, element-wise, int32 in and out.
+    a, b < q < 2**30; q and qinv_neg broadcast against them."""
+    q64 = q.to(torch.int64)
+    qi = _u32(qinv_neg)
+    t = a.to(torch.int64) * b.to(torch.int64)
+    t_lo = t & _M32
+    m = (t_lo * (qi & _M16) + (((t_lo * (qi >> 16)) & _M16) << 16)) & _M32
+    r = (t + m * q64) >> 32
+    return torch.where(r >= q64, r - q64, r).to(torch.int32)
+
+
+def mod_add(a, b, q):
+    s = a + b                     # < 2**31, no wrap in int32
+    return torch.where(s >= q, s - q, s)
+
+
+def mod_sub(a, b, q):
+    return torch.where(a >= b, a - b, a + q - b)
+
+
+def mod_neg(a, q):
+    return torch.where(a == 0, a, q - a)
+
+
+def mod_reduce_centered(v, q):
+    """Signed integers -> residues in [0, q) (the encode helper)."""
+    r = (v.abs() % q).to(torch.int32)
+    return torch.where(v < 0, mod_neg(r, q), r)
+
+
+def _col(v):
+    """[L] -> [L, 1] so it broadcasts over [..., L, N]."""
+    return v[:, None]
+
+
+# ---------------------------------------------------------------------------
+# limb-fused versions: the whole [..., L, N] tensor at once
+# ---------------------------------------------------------------------------
+
+
+def ntt_fwd_fused(x, psi_rev_mont, qs, qinv_negs):
+    """Forward negacyclic NTT over all limbs: [..., L, N] natural order ->
+    bit-reversed.  Cooley-Tukey butterflies, twiddle psi_rev[m + i] for
+    group i of stage m (the JAX package's recurrence)."""
+    l, n = x.shape[-2], x.shape[-1]
+    batch = x.shape[:-2]
+    x = x.reshape(-1, l, n)
+    q = qs[None, :, None, None]
+    qi = qinv_negs[None, :, None, None]
+    m, t = 1, n
+    while m < n:
+        t //= 2
+        xs = x.reshape(-1, l, m, 2, t)
+        u = xs[:, :, :, 0, :]
+        s = psi_rev_mont[:, m:2 * m][None, :, :, None]
+        v = mont_mul(xs[:, :, :, 1, :], s, q, qi)
+        x = torch.stack([mod_add(u, v, q), mod_sub(u, v, q)],
+                        dim=3).reshape(-1, l, n)
+        m *= 2
+    return x.reshape(batch + (l, n))
+
+
+def ntt_inv_fused(x, psi_inv_rev_mont, n_inv_monts, qs, qinv_negs):
+    """Inverse negacyclic NTT over all limbs: bit-reversed -> natural.
+    Gentleman-Sande butterflies with psi_inv_rev[h + i], then N^{-1}."""
+    l, n = x.shape[-2], x.shape[-1]
+    batch = x.shape[:-2]
+    x = x.reshape(-1, l, n)
+    q = qs[None, :, None, None]
+    qi = qinv_negs[None, :, None, None]
+    t, m = 1, n
+    while m > 1:
+        h = m // 2
+        xs = x.reshape(-1, l, h, 2, t)
+        u = xs[:, :, :, 0, :]
+        v = xs[:, :, :, 1, :]
+        s = psi_inv_rev_mont[:, h:2 * h][None, :, :, None]
+        lo = mod_add(u, v, q)
+        hi = mont_mul(mod_sub(u, v, q), s, q, qi)
+        x = torch.stack([lo, hi], dim=3).reshape(-1, l, n)
+        t *= 2
+        m = h
+    x = mont_mul(x, _col(n_inv_monts), _col(qs), _col(qinv_negs))
+    return x.reshape(batch + (l, n))
+
+
+def mul_add_fused(x, y_mont, z, qs, qinv_negs):
+    """x (*) y_mont + z over [..., L, N]; y_mont and z broadcast to x."""
+    return mod_add(mont_mul(x, y_mont, _col(qs), _col(qinv_negs)), z,
+                   _col(qs))
+
+
+def he_weighted_sum_fused(cts, w_mont, qs, qinv_negs, limb_axis: int = -2):
+    """sum_i w_i (*) ct_i over the leading client axis, all limbs.
+
+    cts: int32[C, ..., L, ...] with the limb axis at `limb_axis` (-2 for
+    the ops layout [C, ..., L, N], -3 for ciphertexts [C, ..., L, 2, N]);
+    w_mont: int32[C, L] Montgomery scalar weights.  Clients are folded in
+    order; modular sums are exact, so the order changes no bit.
+    """
+    c = cts.shape[0]
+    trail = -limb_axis - 1                    # axes after the limb axis
+    lshape = (cts.shape[limb_axis],) + (1,) * trail
+    q = qs.reshape(lshape)
+    qi = qinv_negs.reshape(lshape)
+    acc = mont_mul(cts[0], w_mont[0].reshape(lshape), q, qi)
+    for i in range(1, c):
+        acc = mod_add(acc, mont_mul(cts[i], w_mont[i].reshape(lshape), q, qi),
+                      q)
+    return acc

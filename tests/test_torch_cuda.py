@@ -1,0 +1,129 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU with nvcc and skips without one.  The
+file imports neither JAX nor the JAX package, so it runs where only PyTorch
+is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.ckks import cipher, encoding, params
+from repro_torch.kernels import he_agg, ntt, ops, pointwise, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _residues(rng, ctx, rows, device):
+    x = np.stack([rng.randint(0, q, (rows, ctx.n_poly)) for q in ctx.primes],
+                 axis=-2)
+    return torch.from_numpy(x.astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("n", [256, 1024, 8192, 16384])
+def test_kernels_match_plain_versions(cuda, n):
+    """N=16384 takes the kernel's 64 KiB dynamic shared memory path."""
+    ctx = params.make_test_context(n_poly=n, n_limbs=2, device=cuda)
+    t = ctx.device_tables
+    rng = np.random.RandomState(n)
+    x, z = _residues(rng, ctx, 5, cuda), _residues(rng, ctx, 5, cuda)
+    cts = torch.stack([x, z, x])
+    w = torch.from_numpy(np.stack([rng.randint(0, q, 3) for q in ctx.primes],
+                                  axis=1).astype(np.int32)).to(cuda)
+    ops.reset_launch_counts()
+    pairs = [
+        (ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs),
+         ref.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)),
+        (ntt.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                           t.qinv_negs),
+         ref.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                           t.qinv_negs)),
+        (pointwise.mul_add_fused(x, z[:1], z, t.qs, t.qinv_negs),
+         ref.mul_add_fused(x, z[:1], z, t.qs, t.qinv_negs)),
+        (he_agg.he_weighted_sum_fused(cts, w, t.qs, t.qinv_negs),
+         ref.he_weighted_sum_fused(cts, w, t.qs, t.qinv_negs)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    assert ops.launch_counts() == {"ntt_fwd": 1, "ntt_inv": 1, "mul_add": 1,
+                                   "weighted_sum": 1}
+
+
+def test_strided_operands_and_ciphertext_layout(cuda):
+    """Decrypt's interleaved c0/c1 views and weighted_sum's limb_axis=-3."""
+    ctx = params.make_test_context(n_poly=1024, n_limbs=2, device=cuda)
+    t = ctx.device_tables
+    rng = np.random.RandomState(1)
+    data = torch.stack([_residues(rng, ctx, 4, cuda) for _ in range(2)],
+                       dim=-2)                              # [B, L, 2, N]
+    s = _residues(rng, ctx, 1, cuda)
+    got = ops.mul_add(data[..., 1, :], s, data[..., 0, :], ctx)
+    want = ref.mul_add_fused(data[..., 1, :], s, data[..., 0, :], t.qs,
+                             t.qinv_negs)
+    stack = torch.stack([data, data.flip(0)])
+    w = torch.tensor([[5, 6], [7, 8]], dtype=torch.int32, device=cuda)
+    agg = ops.weighted_sum(stack, w, ctx, limb_axis=-3)
+    agg_want = ref.he_weighted_sum_fused(stack, w, t.qs, t.qinv_negs, -3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(agg, agg_want)
+
+
+def test_round_on_the_card_matches_the_cpu(cuda):
+    """Keygen, encrypt, weighted_sum and decrypt with the same draws on the
+    card (kernels) and on the CPU (plain versions): the same bits."""
+    rng = np.random.RandomState(2)
+    n, b = 1024, 3
+    draws = {"s": rng.randint(-1, 2, n), "e": np.rint(3.2 * rng.randn(n)),
+             "u": rng.randint(-1, 2, (b, n)),
+             "e0": np.rint(3.2 * rng.randn(b, n)),
+             "e1": np.rint(3.2 * rng.randn(b, n))}
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = params.make_test_context(n_poly=n, n_limbs=2, device=dev)
+        a = np.stack([np.random.RandomState(3).randint(0, q, n)
+                      for q in ctx.primes])
+        d = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+             for k, v in draws.items()}
+        sk, pk = cipher.keygen_from_samples(
+            ctx, d["s"], torch.from_numpy(a.astype(np.int32)).to(dev), d["e"])
+        vals = np.random.RandomState(4).randn(b, ctx.slots).astype(np.float32)
+        m = torch.from_numpy(encoding.encode_np(vals, ctx).view(np.int32))
+        ct = cipher.encrypt_coeffs_from_samples(ctx, pk, m.to(dev), d["u"],
+                                                d["e0"], d["e1"])
+        agg = cipher.weighted_sum(ctx, cipher.Ciphertext(
+            torch.stack([ct.data, ct.data]), ct.scale), [0.5, 0.5])
+        out.append([sk["s_mont"].cpu(), ct.data.cpu(), agg.data.cpu(),
+                    cipher.decrypt_to_coeffs(ctx, sk, agg).cpu()])
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+
+
+def test_wrappers_raise_on_what_they_do_not_take(cuda):
+    ctx = params.make_test_context(n_poly=256, n_limbs=2, device=cuda)
+    t = ctx.device_tables
+    x = _residues(np.random.RandomState(5), ctx, 2, cuda)
+    with pytest.raises(TypeError, match="int32"):
+        ntt.ntt_fwd_fused(x.to(torch.int64), t.psi_rev_mont, t.qs,
+                          t.qinv_negs)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt.ntt_fwd_fused(x.transpose(0, 1), t.psi_rev_mont, t.qs,
+                          t.qinv_negs)
+    with pytest.raises(ValueError, match="does not match"):
+        ntt.ntt_fwd_fused(x[..., :128].contiguous(), t.psi_rev_mont, t.qs,
+                          t.qinv_negs)
+    with pytest.raises(ValueError, match="on cpu"):
+        pointwise.mul_add_fused(x, x, x, t.qs.cpu(), t.qinv_negs)
+    with pytest.raises(ValueError, match="w_mont"):
+        he_agg.he_weighted_sum_fused(torch.stack([x, x]), t.qs[None],
+                                     t.qs, t.qinv_negs)

@@ -1,0 +1,303 @@
+"""The port's kernels and their plain versions against the JAX package.
+
+For each of the four kernels of the Algorithm 1 round (ntt_fwd, ntt_inv,
+mul_add, weighted_sum) the port's plain PyTorch version must equal, bit for
+bit, both the JAX package's `ref` op and its Pallas kernel run in interpret
+mode, on the same numpy-seeded inputs at N in {256, 1024}, L=2.  The NTT
+gold vectors that do not depend on the JAX PRNG are reproduced too, and the
+CUDA kernels' arithmetic header is compiled with g++ and held against the
+JAX package's 16-bit-split Montgomery product.  The CUDA kernels themselves
+are tested in tests/test_torch_cuda.py.
+"""
+import ctypes
+import functools
+import pathlib
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from repro.core.ckks import params as jparams
+from repro.kernels import he_agg as jhe_agg
+from repro.kernels import ntt as jntt
+from repro.kernels import pointwise as jpointwise
+from repro.kernels import ref as jref
+
+from repro_torch import interop
+from repro_torch.core.ckks import params as tparams
+from repro_torch.kernels import build, he_agg, ntt, ops, pointwise, ref
+
+import gold
+
+NS = (256, 1024)
+CSRC = pathlib.Path(build.__file__).parent / "csrc"
+
+
+def _ctxs(n, l=2):
+    return (jparams.make_test_context(n_poly=n, n_limbs=l),
+            tparams.make_test_context(n_poly=n, n_limbs=l, device="cpu"))
+
+
+def _t(a):
+    return interop.residues_from_np(np.asarray(a), "cpu")
+
+
+def _np(t):
+    return interop.residues_to_np(t)
+
+
+def _jref(fn, *args, **static):
+    """A JAX ref op as one compiled graph (op-by-op dispatch of its
+    unrolled stages costs seconds on the CPU)."""
+    return jax.jit(functools.partial(fn, **static))(*args)
+
+
+def _assert_same(port, *jax_outs):
+    got = _np(port)
+    for want in jax_outs:
+        np.testing.assert_array_equal(got, np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# plain versions == JAX ref == JAX Pallas (interpret)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", NS)
+def test_ntt_fwd_matches_jax(n):
+    jctx, tctx = _ctxs(n)
+    jt, tt = jctx.tables, tctx.device_tables
+    x = jref.rand_limbed_np(np.random.RandomState(n), jctx, (3,))
+    port = ref.ntt_fwd_fused(_t(x), tt.psi_rev_mont, tt.qs, tt.qinv_negs)
+    _assert_same(
+        port,
+        _jref(jref.ntt_fwd_fused, x, jt.psi_rev_mont, jt.qs, jt.qinv_negs),
+        jntt.ntt_fwd_fused(x, jt.psi_rev_mont, jt.qs, jt.qinv_negs,
+                           interpret=True))
+    assert torch.equal(ops.ntt_fwd(_t(x), tctx), port)
+
+
+@pytest.mark.parametrize("n", NS)
+def test_ntt_inv_matches_jax(n):
+    jctx, tctx = _ctxs(n)
+    jt, tt = jctx.tables, tctx.device_tables
+    x = jref.rand_limbed_np(np.random.RandomState(n + 1), jctx, (3,))
+    port = ref.ntt_inv_fused(_t(x), tt.psi_inv_rev_mont, tt.n_inv_monts,
+                             tt.qs, tt.qinv_negs)
+    _assert_same(
+        port,
+        _jref(jref.ntt_inv_fused, x, jt.psi_inv_rev_mont, jt.n_inv_monts,
+              jt.qs, jt.qinv_negs),
+        jntt.ntt_inv_fused(x, jt.psi_inv_rev_mont, jt.n_inv_monts, jt.qs,
+                           jt.qinv_negs, interpret=True))
+    assert torch.equal(ops.ntt_inv(_t(x), tctx), port)
+    # and the pair inverts
+    assert torch.equal(ops.ntt_inv(ops.ntt_fwd(_t(x), tctx), tctx), _t(x))
+
+
+@pytest.mark.parametrize("n", NS)
+def test_mul_add_matches_jax(n):
+    jctx, tctx = _ctxs(n)
+    jt, tt = jctx.tables, tctx.device_tables
+    rng = np.random.RandomState(n + 2)
+    x = jref.rand_limbed_np(rng, jctx, (3,))
+    y = jref.rand_limbed_np(rng, jctx, (1,))        # broadcast like pk
+    z = jref.rand_limbed_np(rng, jctx, (3,))
+    port = ref.mul_add_fused(_t(x), _t(y), _t(z), tt.qs, tt.qinv_negs)
+    _assert_same(
+        port,
+        _jref(jref.mul_add_fused, x, np.broadcast_to(y, x.shape), z, jt.qs,
+              jt.qinv_negs),
+        jpointwise.mul_add_fused(x, y, z, jt.qs, jt.qinv_negs,
+                                 interpret=True))
+    assert torch.equal(ops.mul_add(_t(x), _t(y), _t(z), tctx), port)
+
+
+@pytest.mark.parametrize("n", NS)
+def test_mul_add_reads_interleaved_ciphertext_views(n):
+    """Decrypt's operands: c1 and c0 are strided views of [B, L, 2, N]."""
+    jctx, tctx = _ctxs(n)
+    jt, tt = jctx.tables, tctx.device_tables
+    rng = np.random.RandomState(n + 3)
+    data = jref.rand_limbed_np(rng, jctx, (3, 2)).transpose(0, 2, 1, 3)
+    s = jref.rand_limbed_np(rng, jctx, ())
+    td = _t(np.ascontiguousarray(data))
+    port = ops.mul_add(td[..., 1, :], _t(s)[None], td[..., 0, :], tctx)
+    _assert_same(port, jpointwise.mul_add_fused(
+        np.ascontiguousarray(data[..., 1, :]), s[None],
+        np.ascontiguousarray(data[..., 0, :]), jt.qs, jt.qinv_negs,
+        interpret=True))
+
+
+@pytest.mark.parametrize("n", NS)
+def test_weighted_sum_matches_jax(n):
+    jctx, tctx = _ctxs(n)
+    jt, tt = jctx.tables, tctx.device_tables
+    rng = np.random.RandomState(n + 4)
+    cts = jref.rand_limbed_np(rng, jctx, (3, 4))               # [C, B, L, N]
+    w = np.stack([rng.randint(0, q, 3) for q in jctx.primes],
+                 axis=1).astype(np.uint32)                     # [C, L]
+    port = ref.he_weighted_sum_fused(_t(cts), _t(w), tt.qs, tt.qinv_negs)
+    _assert_same(
+        port,
+        _jref(jref.he_weighted_sum_fused, cts, w, jt.qs, jt.qinv_negs),
+        jhe_agg.he_weighted_sum_fused(cts, w, jt.qs, jt.qinv_negs,
+                                      interpret=True))
+    assert torch.equal(ops.weighted_sum(_t(cts), _t(w), tctx), port)
+
+
+@pytest.mark.parametrize("n", NS)
+def test_weighted_sum_in_ciphertext_layout(n):
+    """limb_axis=-3 reads [C, B, L, 2, N] in place; the JAX package moves
+    the limb axis to -2 first.  Same bits."""
+    jctx, tctx = _ctxs(n)
+    jt = jctx.tables
+    rng = np.random.RandomState(n + 5)
+    data = np.ascontiguousarray(
+        jref.rand_limbed_np(rng, jctx, (3, 2, 2)).transpose(0, 1, 3, 2, 4))
+    w = np.stack([rng.randint(0, q, 3) for q in jctx.primes],
+                 axis=1).astype(np.uint32)
+    port = ops.weighted_sum(_t(data), _t(w), tctx, limb_axis=-3)
+    want = jhe_agg.he_weighted_sum_fused(
+        np.moveaxis(data, -3, -2), w, jt.qs, jt.qinv_negs, interpret=True)
+    _assert_same(port, np.moveaxis(np.asarray(want), -2, -3))
+
+
+@pytest.mark.parametrize("name", sorted(gold.KAT_CONTEXTS))
+def test_ntt_gold_vectors(name):
+    """The NTT known-answer vectors (which no PRNG touches) bit for bit."""
+    kats = gold.load_kats()
+    spec = gold.KAT_CONTEXTS[name]
+    jctx = jparams.make_context(**spec)
+    tctx = tparams.make_context(**spec, device="cpu")
+    x = jref.rand_limbed_np(np.random.RandomState(12345), jctx, (2,))
+    np.testing.assert_array_equal(_np(ops.ntt_fwd(_t(x), tctx)),
+                                  kats[f"{name}/ntt_fwd"])
+    np.testing.assert_array_equal(_np(ops.ntt_inv(_t(x), tctx)),
+                                  kats[f"{name}/ntt_inv"])
+
+
+# ---------------------------------------------------------------------------
+# wrappers: the device decides, launches are counted only on the card
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_version_without_launching():
+    _, tctx = _ctxs(256)
+    x = _t(jref.rand_limbed_np(np.random.RandomState(6), _ctxs(256)[0], (2,)))
+    ops.reset_launch_counts()
+    ops.mul_add(ops.ntt_inv(ops.ntt_fwd(x, tctx), tctx), x, x, tctx)
+    ops.weighted_sum(torch.stack([x, x]), torch.ones(2, 2, dtype=torch.int32),
+                     tctx)
+    assert ops.launch_counts() == {"ntt_fwd": 0, "ntt_inv": 0, "mul_add": 0,
+                                   "weighted_sum": 0}
+
+
+@pytest.mark.parametrize("op", ["ntt_fwd", "ntt_inv", "mul_add",
+                                "weighted_sum"])
+def test_wrappers_refuse_tensors_neither_cpu_nor_cuda(op):
+    """A non-CPU tensor goes to the kernel or raises; it never runs the
+    plain version.  (`meta` stands in for a device without a kernel.)"""
+    _, tctx = _ctxs(256)
+    t = tctx.device_tables
+    x = torch.empty(2, 2, 256, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="not supported"):
+        if op == "ntt_fwd":
+            ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)
+        elif op == "ntt_inv":
+            ntt.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                              t.qinv_negs)
+        elif op == "mul_add":
+            pointwise.mul_add_fused(x, x, x, t.qs, t.qinv_negs)
+        else:
+            he_agg.he_weighted_sum_fused(x[None], x[0, :, :2], t.qs,
+                                         t.qinv_negs)
+
+
+def test_build_cache_key_follows_the_sources():
+    """Library names hash the header, the source and the flags, so an edit
+    rebuilds instead of loading a stale library."""
+    paths = {n: build._lib_path(n) for n in build.SOURCES}
+    assert len(set(paths.values())) == len(build.SOURCES)
+    assert all(p.parent == build.BUILD_DIR for p in paths.values())
+    assert set(build.SIGNATURES) == set(build.SOURCES)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' arithmetic core, compiled for the host
+# ---------------------------------------------------------------------------
+
+_HOST_SHIM = r"""
+#include "mont.cuh"
+extern "C" void host_mont_mul(const uint32_t* a, const uint32_t* b,
+                              uint32_t* out, long long n, uint32_t q,
+                              uint32_t qinv) {
+  for (long long i = 0; i < n; ++i) out[i] = mont_mul(a[i], b[i], q, qinv);
+}
+extern "C" void host_mod_add(const uint32_t* a, const uint32_t* b,
+                             uint32_t* out, long long n, uint32_t q) {
+  for (long long i = 0; i < n; ++i) out[i] = mod_add(a[i], b[i], q);
+}
+extern "C" void host_mod_sub(const uint32_t* a, const uint32_t* b,
+                             uint32_t* out, long long n, uint32_t q) {
+  for (long long i = 0; i < n; ++i) out[i] = mod_sub(a[i], b[i], q);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def mont_host_lib(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not available")
+    d = tmp_path_factory.mktemp("mont")
+    (d / "shim.cpp").write_text(_HOST_SHIM)
+    so = d / "libmont_host.so"
+    subprocess.run([gxx, "-O2", "-shared", "-fPIC", f"-I{CSRC}", "-o",
+                    str(so), str(d / "shim.cpp")], check=True,
+                   capture_output=True, timeout=120)
+    lib = ctypes.CDLL(str(so))
+    p, ll, u32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32
+    lib.host_mont_mul.argtypes = (p, p, p, ll, u32, u32)
+    lib.host_mod_add.argtypes = (p, p, p, ll, u32)
+    lib.host_mod_sub.argtypes = (p, p, p, ll, u32)
+    for f in (lib.host_mont_mul, lib.host_mod_add, lib.host_mod_sub):
+        f.restype = None
+    return lib
+
+
+@pytest.mark.parametrize("limb", [0, 1])
+def test_mont_header_matches_jax_ref(mont_host_lib, limb):
+    """csrc/mont.cuh's 64-bit REDC == the JAX 16-bit-split mont_mul, on
+    10k random pairs per prime of the paper's N=8192 context."""
+    lc = jparams.make_context().limbs[limb]
+    rng = np.random.RandomState(limb)
+    a = rng.randint(0, lc.q, 10_000).astype(np.uint32)
+    b = rng.randint(0, lc.q, 10_000).astype(np.uint32)
+    a[:3], b[:3] = [0, lc.q - 1, lc.q - 1], [lc.q - 1, lc.q - 1, 0]
+    out = np.empty_like(a)
+
+    def call(fn, *extra):
+        fn(a.ctypes.data, b.ctypes.data, out.ctypes.data, a.size, lc.q,
+           *extra)
+        return out.copy()
+
+    np.testing.assert_array_equal(
+        call(mont_host_lib.host_mont_mul, lc.qinv_neg),
+        np.asarray(jref.mont_mul(a, b, np.uint32(lc.q),
+                                 np.uint32(lc.qinv_neg))))
+    np.testing.assert_array_equal(
+        call(mont_host_lib.host_mod_add),
+        np.asarray(jref.mod_add(a, b, np.uint32(lc.q))))
+    np.testing.assert_array_equal(
+        call(mont_host_lib.host_mod_sub),
+        np.asarray(jref.mod_sub(a, b, np.uint32(lc.q))))
+    # the port's plain int64 REDC gives the same bits
+    tt = tparams.make_context(device="cpu").device_tables
+    np.testing.assert_array_equal(
+        _np(ref.mont_mul(_t(a), _t(b), tt.qs[limb], tt.qinv_negs[limb])),
+        call(mont_host_lib.host_mont_mul, lc.qinv_neg))
