@@ -3,24 +3,35 @@
 
     python3 chip_smoke.py [--seed S]
 
-Three phases; any failure exits non-zero, and without CUDA the script exits
+Four phases; any failure exits non-zero, and without CUDA the script exits
 non-zero before doing anything:
 
 1. build: nvcc builds every kernel under src/repro_torch/kernels/csrc/ for
    sm_90a (one nvcc per source, started together);
 2. kernels: each kernel's wrapper runs on the card at the main path's shapes
    and is held against its plain PyTorch version on the same inputs with
-   exact integer equality, timed with CUDA events; a small encrypt/decrypt
-   on the card is held bit for bit against the same draws on the CPU;
-3. main path: the paper's Algorithm 1 round at full width -- make_context()
-   (N=8192, L=2, delta=2^26), keygen, three clients' Qwen1.5-0.5B-sized
-   updates (463,987,712 float32 parameters, top 10% encrypted in 11,328
-   ciphertexts each) through client_protect, server_aggregate and
-   client_recover_params -- with the launch counters set to 0 just before
-   it and read just after.  The recovered average must be within 1e-2 of
-   the plaintext FedAvg (the quickstart's bound).  torch.profiler traces
-   the round and the script prints the device's busy share and its time
-   by kernel.
+   exact integer equality, timed with CUDA events.  A small round on the
+   card is held bit for bit against the same draws on the CPU: keygen,
+   public-key and seeded encrypt, `a` expansion for both derive ids,
+   weighted_sum, rescale, decrypt, and a StreamIngest of two small packed
+   blobs;
+3. in-memory round: the paper's Algorithm 1 round at full width --
+   make_context() (N=8192, L=2, delta=2^26), keygen, three clients'
+   Qwen1.5-0.5B-sized updates (463,987,712 float32 parameters, top 10%
+   encrypted in 11,328 ciphertexts each) through client_protect,
+   server_aggregate and client_recover_params;
+4. wire round: the same clients, keys and mask over the wire (the
+   quickstart's step 5) -- client_protect_seeded, seed_compress and
+   pack_update_frames with an f16 plain segment, a BandwidthLedger of every
+   blob, StreamIngest.ingest of each blob and finalize, a serialize_update
+   downlink, and client_recover_params from the parsed downlink.
+
+Phases 3 and 4 each run with the launch counters set to 0 just before and
+read just after, under torch.profiler (device busy share, time by kernel).
+Each must recover the plaintext FedAvg within 1e-2 (the quickstart's
+bound) with exactly its expected launch counts; the wire round must also
+fold with one accumulate launch per client and hold at most one update's
+11,328 rows, with blob sizes equal to the frame layout's.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line with every kernel's numbers, and the JSON result line.
@@ -42,9 +53,11 @@ import torch  # noqa: E402
 
 from repro_torch.core.ckks import cipher, encoding, params  # noqa: E402
 from repro_torch.core.secure_agg import (  # noqa: E402
-    AggregatorConfig, SelectiveHEAggregator)
+    AggregatorConfig, ProtectedUpdate, SelectiveHEAggregator)
 from repro_torch.kernels import (  # noqa: E402
     build, he_agg, ntt, ops, pointwise, ref)
+from repro_torch.wire import budget, compress, format as wf  # noqa: E402
+from repro_torch.wire import stream  # noqa: E402
 
 # Qwen1.5-0.5B (src/repro/configs/qwen1_5_0_5b.py: 24 layers, d_model 1024,
 # d_ff 2816, vocab 151936, QKV bias, tied embeddings): the 14 parameter
@@ -64,9 +77,20 @@ QWEN_LEAVES = {
 N_PARAMS = 463_987_712
 N_CLIENTS = 3
 P_RATIO = 0.1
-EXPECTED_LAUNCHES = {"ntt_fwd": 14, "ntt_inv": 1, "mul_add": 7,
-                     "weighted_sum": 1}
+# launches per path: the in-memory round runs keygen (2 ntt_fwd), three
+# public-key encrypts (4 ntt_fwd, 2 mul_add each), weighted_sum and decrypt
+# (mul_add, ntt_inv); the wire round reuses the keys, runs three seeded
+# encrypts (2 ntt_fwd, 1 mul_add each), one accumulate launch per ingested
+# blob, and decrypt
+EXPECTED_LAUNCHES = {
+    "in_memory": {"ntt_fwd": 14, "ntt_inv": 1, "mul_add": 7,
+                  "weighted_sum": 1, "weighted_accum_chunks": 0},
+    "wire": {"ntt_fwd": 6, "ntt_inv": 1, "mul_add": 4, "weighted_sum": 0,
+             "weighted_accum_chunks": 3},
+}
 MAX_ERR = 1e-2
+PLAIN_CODEC = "f16"
+A_SEED0 = 100          # client i seeds its public `a` with A_SEED0 + i
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s; 67 TFLOP/s
 # float32 outside the tensor cores, the rate the integer multiplies are
@@ -86,6 +110,8 @@ KERNELS = {
                 "src/repro/kernels/pointwise.py:26"),
     "weighted_sum": ("src/repro_torch/kernels/csrc/he_agg.cu",
                      "src/repro/kernels/he_agg.py:32"),
+    "weighted_accum_chunks": ("src/repro_torch/kernels/csrc/he_agg.cu",
+                              "src/repro/kernels/he_agg.py:162"),
 }
 
 
@@ -156,6 +182,12 @@ def check_kernels(ctx, gen, n_rows):
                        for _ in range(N_CLIENTS)])              # [C,B,L,2,N]
     w = torch.from_numpy(encoding.encode_weights_mont(
         [1.0 / N_CLIENTS] * N_CLIENTS, ctx).view(np.int32).copy()).to(dev)
+    # the flush: one update's rows against a running accumulator, each row
+    # weighted as if from a different client
+    acc = uniform((n_rows, 2, n)).movedim(-2, -3).contiguous()  # [K,L,2,N]
+    w_rows = torch.from_numpy(encoding.encode_weights_mont(
+        [0.2, 0.3, 0.5], ctx).view(np.int32).copy()).to(dev)[
+            torch.arange(n_rows, device=dev) % N_CLIENTS].contiguous()
     elems = x.numel()
     ntt_muls = MULS_PER_MONT * (n // 2) * log_n * (elems // n)
     cases = {
@@ -182,6 +214,13 @@ def check_kernels(ctx, gen, n_rows):
             cts.shape,
             4 * ((N_CLIENTS + 1) * cts[0].numel() + N_CLIENTS * l + 2 * l),
             MULS_PER_MONT * N_CLIENTS * cts[0].numel()),
+        "weighted_accum_chunks": (
+            lambda: he_agg.he_weighted_accum_chunks_fused(
+                acc, cts[0], w_rows, t.qs, t.qinv_negs, limb_axis=-3),
+            lambda: ref.he_weighted_accum_chunks_fused(
+                acc, cts[0], w_rows, t.qs, t.qinv_negs, limb_axis=-3),
+            acc.shape, 4 * (3 * acc.numel() + w_rows.numel() + 2 * l),
+            MULS_PER_MONT * acc.numel()),
     }
     rows = {}
     for name, (kern, plain, shape, nbytes, nops) in cases.items():
@@ -214,9 +253,47 @@ def check_kernels(ctx, gen, n_rows):
     return rows
 
 
+def small_round(c, draws, a, vals, plain):
+    """The small round on context c: every output that must agree between
+    the card and the CPU, and the keys, as (outputs, sk)."""
+    d = {k: torch.from_numpy(v.astype(np.int32)).to(c.device)
+         for k, v in draws.items()}
+    sk, pk = cipher.keygen_from_samples(
+        c, d["s"], torch.from_numpy(a.astype(np.int32)).to(c.device), d["e"])
+    m = torch.from_numpy(encoding.encode_np(vals, c).view(np.int32).copy()
+                         ).to(c.device)
+    ct = cipher.encrypt_coeffs_from_samples(c, pk, m, d["u"], d["e0"],
+                                            d["e1"])
+    agg = cipher.weighted_sum(c, cipher.Ciphertext(
+        torch.stack([ct.data, ct.data]), ct.scale), [0.25, 0.75])
+    out = {"ciphertexts": ct.data, "aggregate": agg.data,
+           "decryption": cipher.decrypt_to_coeffs(c, sk, agg),
+           "rescale": cipher.rescale(c, agg).data}
+    ing = stream.StreamIngest(c)
+    blobs = []
+    for derive, codec, w in ((compress.DERIVE_FOLD_CHUNK, "f16", 0.25),
+                             (compress.DERIVE_CTR, "i8", 0.75)):
+        out[f"expand_a derive={derive}"] = cipher.expand_a_rows(
+            c, 2 ** 40 + 3, 5, 3, derive)
+        sct = cipher.encrypt_coeffs_seeded_from_samples(
+            c, sk, m, d["e0"], a_seed=77 + derive, derive=derive)
+        out[f"seeded ciphertexts derive={derive}"] = sct.data
+        blobs.append(stream.pack_update_frames(
+            ProtectedUpdate(ct=sct, plain=torch.from_numpy(plain).to(
+                c.device)),
+            cid=derive, n_samples=1, seeded=compress.seed_compress(
+                sct, 77 + derive, derive), plain_codec=codec))
+        ing.ingest(blobs[-1], w)
+    glob = ing.finalize()
+    out["stream aggregate"] = glob.ct.data
+    out["stream plain"] = glob.plain.view(torch.int32)
+    return {k: v.cpu() for k, v in out.items()}, blobs, sk
+
+
 def check_small_round_against_cpu(ctx, seed):
-    """Encrypt and decrypt a few ciphertexts with the same draws on the card
-    (kernels) and on the CPU (plain versions): bit-identical."""
+    """A few ciphertexts through every op of both rounds with the same draws
+    on the card (kernels) and on the CPU (plain versions): bit-identical,
+    and the packed blobs byte-identical."""
     cpu_ctx = params.make_context(n_poly=ctx.n_poly, n_limbs=ctx.n_limbs,
                                   delta_bits=ctx.delta_bits, device="cpu")
     rng = np.random.RandomState(seed)
@@ -227,33 +304,23 @@ def check_small_round_against_cpu(ctx, seed):
              "e1": np.rint(3.2 * rng.randn(b, n))}
     a = np.stack([rng.randint(0, q, n) for q in ctx.primes])
     vals = rng.randn(b, ctx.slots).astype(np.float32)
-    out = {}
-    for c in (ctx, cpu_ctx):
-        d = {k: torch.from_numpy(v.astype(np.int32)).to(c.device)
-             for k, v in draws.items()}
-        sk, pk = cipher.keygen_from_samples(
-            c, d["s"], torch.from_numpy(a.astype(np.int32)).to(c.device),
-            d["e"])
-        m = encoding.encode_np(vals, c).view(np.int32)
-        ct = cipher.encrypt_coeffs_from_samples(
-            c, pk, torch.from_numpy(m.copy()).to(c.device), d["u"], d["e0"],
-            d["e1"])
-        agg = cipher.weighted_sum(c, cipher.Ciphertext(
-            torch.stack([ct.data, ct.data]), ct.scale), [0.25, 0.75])
-        out[c.device.type] = (ct.data.cpu(), agg.data.cpu(),
-                              cipher.decrypt_to_coeffs(c, sk, agg).cpu())
-    for got, want, what in zip(out["cuda"], out["cpu"],
-                               ("ciphertexts", "aggregate", "decryption")):
-        if not torch.equal(got, want):
+    plain = rng.randn(1000).astype(np.float32)
+    card, card_blobs, _ = small_round(ctx, draws, a, vals, plain)
+    cpu, cpu_blobs, sk = small_round(cpu_ctx, draws, a, vals, plain)
+    for what, want in cpu.items():
+        if not torch.equal(card[what], want):
             raise AssertionError(f"small round: {what} on the card differ "
                                  "from the CPU's")
+    if card_blobs != cpu_blobs:
+        raise AssertionError("small round: packed blobs differ")
     dec = cipher.decrypt_values_np(
-        cpu_ctx, sk, cipher.Ciphertext(out["cpu"][1], ctx.delta ** 2))
+        cpu_ctx, sk, cipher.Ciphertext(cpu["aggregate"], ctx.delta ** 2))
     err = float(np.abs(dec - vals).max())
     if not err < MAX_ERR:
         raise AssertionError(f"small round: decode error {err}")
-    log(f"small round ({b} ciphertexts, N={n}): card == CPU bit for bit, "
-        f"decode error {err:.3e}")
+    log(f"small round ({b} ciphertexts, N={n}): card == CPU bit for bit "
+        f"({', '.join(cpu)}), blobs byte-identical, decode error "
+        f"{err:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -262,9 +329,9 @@ def check_small_round_against_cpu(ctx, seed):
 
 
 @contextlib.contextmanager
-def traced():
-    """torch.profiler over the main path: prints the device time by kernel
-    name and the device's busy share of the host clock (the union of the
+def traced(what):
+    """torch.profiler over one path: prints the device time by kernel name
+    and the device's busy share of the host clock (the union of the
     device-side events' intervals)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -282,20 +349,57 @@ def traced():
             us = e.time_range.elapsed_us()
             by_name[e.name] = by_name.get(e.name, 0.0) + us
     if not spans:
-        raise AssertionError("the profiler recorded no device events")
+        raise AssertionError(f"{what}: the profiler recorded no device "
+                             "events")
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
-    log(f"profile: device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
-        f"host clock (idle share {1 - busy / wall_us:.4f}), "
-        f"{len(spans)} device events")
+    log(f"{what} profile: device busy {busy / 1e3:.3f} ms of "
+        f"{wall_us / 1e3:.3f} ms host clock (idle share "
+        f"{1 - busy / wall_us:.4f}), {len(spans)} device events")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
-        log(f"profile: {us / 1e3:10.3f} ms  {name[:100]}")
+        log(f"{what} profile: {us / 1e3:10.3f} ms  {name[:100]}")
 
 
-def main_path(seed):
-    """The Algorithm 1 round at Qwen1.5-0.5B width; returns launch counts."""
+def flat_leaves(tree):
+    return torch.cat([p.reshape(-1) for p in leaves(tree)])
+
+
+def check_recovered(what, recovered, expect):
+    """Leaf shapes, finiteness and the FedAvg bound; returns the error."""
+    got_leaves = leaves(recovered)
+    if [tuple(p.shape) for p in got_leaves] != leaves(QWEN_LEAVES):
+        raise AssertionError(f"{what}: recovered leaves have the wrong "
+                             "shapes")
+    got = torch.cat([p.reshape(-1) for p in got_leaves])
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: recovered parameters are not finite")
+    err = float((got - expect).abs().max())
+    log(f"{what} max |recovered - plaintext FedAvg| = {err:.3e} "
+        f"(bound {MAX_ERR})")
+    if not err < MAX_ERR:
+        raise AssertionError(f"{what}: FedAvg error {err} >= {MAX_ERR}")
+    return err
+
+
+def check_launches(what, counts):
+    log(f"{what} launches: {json.dumps(counts)}")
+    if counts != EXPECTED_LAUNCHES[what]:
+        raise AssertionError(f"{what} launch counts {counts} != "
+                             f"{EXPECTED_LAUNCHES[what]}")
+
+
+def report_times(what, times, t0):
+    for name, s in times.items():
+        log(f"{what} time {name}: {s:.3f} s")
+    log(f"{what} total: {time.perf_counter() - t0:.3f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def in_memory_round(seed):
+    """The Algorithm 1 round at Qwen1.5-0.5B width; returns its launch
+    counts and the state the wire round reuses."""
     sync = torch.cuda.synchronize
     times = {}
     torch.cuda.reset_peak_memory_stats()
@@ -321,7 +425,7 @@ def main_path(seed):
     if rep["n_total"] != N_PARAMS or rep["n_ciphertexts"] != \
             n_ciphertexts(ctx.slots):
         raise AssertionError(f"unexpected partition: {rep}")
-    log(f"main path: {rep['n_enc']}/{rep['n_total']} parameters encrypted "
+    log(f"in_memory: {rep['n_enc']}/{rep['n_total']} parameters encrypted "
         f"in {rep['n_ciphertexts']} ciphertexts per client")
 
     updates, expect = [], 0
@@ -333,7 +437,7 @@ def main_path(seed):
                 seed + 10 + i)))
         sync()
         times[f"client_protect[{i}]"] = time.perf_counter() - t
-        expect = expect + torch.cat([p.reshape(-1) for p in leaves(client)])
+        expect = expect + flat_leaves(client)
         del client
     for u in updates:
         if tuple(u.ct.data.shape) != (rep["n_ciphertexts"], 2, 2,
@@ -350,29 +454,117 @@ def main_path(seed):
     recovered = agg.client_recover_params(glob, sk)
     sync()
     times["client_recover_params"] = time.perf_counter() - t
-    total_s = time.perf_counter() - t0
     counts = ops.launch_counts()
-
+    report_times("in_memory", times, t0)
     expect = expect / N_CLIENTS           # plaintext FedAvg, flat
-    got_leaves = leaves(recovered)
-    if [tuple(p.shape) for p in got_leaves] != leaves(QWEN_LEAVES):
-        raise AssertionError("recovered leaves have the wrong shapes")
-    got = torch.cat([p.reshape(-1) for p in got_leaves])
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError("recovered parameters are not finite")
-    err = float((got - expect).abs().max())
-    for name, s in times.items():
-        log(f"main path time {name}: {s:.3f} s")
-    log(f"main path total: {total_s:.3f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"main path max |recovered - plaintext FedAvg| = {err:.3e} "
-        f"(bound {MAX_ERR})")
-    if not err < MAX_ERR:
-        raise AssertionError(f"FedAvg error {err} >= {MAX_ERR}")
-    log(f"main path launches: {json.dumps(counts)}")
-    if counts != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launch counts {counts} != "
-                             f"{EXPECTED_LAUNCHES}")
+    check_recovered("in_memory", recovered, expect)
+    check_launches("in_memory", counts)
+    return counts, {"ctx": ctx, "sk": sk, "agg": agg, "model": model,
+                    "expect": expect, "n_rows": rep["n_ciphertexts"]}
+
+
+def uplink_blob_bytes(n_rows, n_limbs, n_poly, n_plain):
+    """Bytes of one seeded uplink blob with an f16 plain segment, from the
+    frame layout (DESIGN.md §6, §9.2): 16-byte headers; a CT_CHUNK is its
+    u32 index plus a v2 seeded frame (f64 scale, u64 seed, u32 offset, u8
+    derive, then a 3-d u32 array); the plain segment is u8 codec, f64 scale
+    and a 1-d f16 array; UPDATE_BEGIN carries 17 bytes, UPDATE_END none."""
+    h = wf.HEADER_BYTES
+    chunk = h + 4 + h + 21 + (2 + 3 * 4) + 4 * n_limbs * n_poly
+    return (h + 17) + n_rows * chunk + (h + 9 + 2 + 4 + 2 * n_plain) + h
+
+
+def downlink_blob_bytes(n_rows, n_limbs, n_poly, n_plain):
+    """Bytes of the serialize_update downlink (full ciphertext, f32
+    plain)."""
+    h = wf.HEADER_BYTES
+    ct = h + 8 + (2 + 4 * 4) + 4 * n_rows * n_limbs * 2 * n_poly
+    return h + ct + (h + 9 + 2 + 4 + 4 * n_plain)
+
+
+def wire_round(seed, st):
+    """The round over the wire, with the in-memory round's keys and mask;
+    returns its launch counts."""
+    sync = torch.cuda.synchronize
+    ctx, sk, agg, model = st["ctx"], st["sk"], st["agg"], st["model"]
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ledger = budget.BandwidthLedger()
+    blobs = []
+    for i in range(N_CLIENTS):
+        client = map_tree(lambda p: p + 0.1 * i, model)
+        t = time.perf_counter()
+        upd = agg.client_protect_seeded(
+            client, sk, torch.Generator(device=ctx.device).manual_seed(
+                seed + 20 + i), a_seed=A_SEED0 + i)
+        sync()
+        times[f"client_protect_seeded[{i}]"] = time.perf_counter() - t
+        del client
+        t = time.perf_counter()
+        blobs.append(stream.pack_update_frames(
+            upd, cid=i, n_samples=1, rnd=0,
+            seeded=compress.seed_compress(upd.ct, A_SEED0 + i),
+            plain_codec=PLAIN_CODEC))
+        times[f"seed_compress + pack_update_frames[{i}]"] = \
+            time.perf_counter() - t
+        del upd
+        ledger.record_blob(blobs[-1], rnd=0, cid=i, direction=budget.UPLINK)
+
+    ingest = stream.StreamIngest(ctx)
+    for i, blob in enumerate(blobs):
+        t = time.perf_counter()
+        ingest.ingest(blob, 1 / N_CLIENTS)
+        sync()
+        times[f"StreamIngest.ingest[{i}]"] = time.perf_counter() - t
+    t = time.perf_counter()
+    glob = ingest.finalize()
+    sync()
+    times["finalize"] = time.perf_counter() - t
+    up_sizes = [len(b) for b in blobs]
+    del blobs
+
+    t = time.perf_counter()
+    down = wf.serialize_update(glob)
+    times["serialize_update (downlink)"] = time.perf_counter() - t
+    del glob
+    ledger.record_blob(down, rnd=0, cid=0, direction=budget.DOWNLINK)
+    t = time.perf_counter()
+    received, _ = wf.deserialize(down, ctx)
+    sync()
+    times["deserialize (downlink)"] = time.perf_counter() - t
+    down_size = len(down)
+    del down
+    t = time.perf_counter()
+    recovered = agg.client_recover_params(received, sk)
+    sync()
+    times["client_recover_params"] = time.perf_counter() - t
+    counts = ops.launch_counts()
+    report_times("wire", times, t0)
+
+    n_rows, part = st["n_rows"], agg.part
+    want_up = uplink_blob_bytes(n_rows, ctx.n_limbs, ctx.n_poly,
+                                part.n_plain)
+    want_down = downlink_blob_bytes(n_rows, ctx.n_limbs, ctx.n_poly,
+                                    part.n_plain)
+    log(f"wire bytes: uplink blobs {up_sizes} (frame layout {want_up} "
+        f"each), downlink {down_size} (frame layout {want_down})")
+    log(f"wire ledger round 0: {json.dumps(ledger.round_summary(0))}")
+    log(f"wire compression: {json.dumps(ledger.compression_summary(ctx, part, 0))}")
+    log(f"wire ingest: accum_launches={ingest.accum_launches} "
+        f"clients_ingested={ingest.clients_ingested} "
+        f"peak_chunk_buffers={ingest.peak_chunk_buffers} "
+        f"bytes_ingested={ingest.bytes_ingested}")
+    if up_sizes != [want_up] * N_CLIENTS or down_size != want_down:
+        raise AssertionError("wire blob sizes differ from the frame layout")
+    if not ingest.accum_launches == N_CLIENTS == ingest.clients_ingested:
+        raise AssertionError("wire: not one accumulate launch per client")
+    if ingest.peak_chunk_buffers != n_rows:
+        raise AssertionError(f"wire: peak_chunk_buffers "
+                             f"{ingest.peak_chunk_buffers} != {n_rows}")
+    check_recovered("wire", recovered, st["expect"])
+    check_launches("wire", counts)
     return counts
 
 
@@ -390,6 +582,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     t = time.perf_counter()
     build.load_all()
@@ -403,11 +596,17 @@ def main():
     del ctx, gen
     torch.cuda.empty_cache()
 
-    with traced():
-        counts = main_path(args.seed)
+    by_path = {}
+    with traced("in_memory"):
+        by_path["in_memory"], state = in_memory_round(args.seed)
+    with traced("wire"):
+        by_path["wire"] = wire_round(args.seed, state)
+    del state
     for name, row in rows.items():
-        row["launches"] = counts[name]
+        row["launches"] = sum(c[name] for c in by_path.values())
+        row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
 
+    log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -238,7 +238,11 @@ class CkksContext:
       * per-limb constants: stacked [L] / [L, N] tables.
 
     `device` is where the context's tensors live; every entry point that
-    takes the context runs there.
+    takes the context runs there.  `threefry_partitionable` names the layout
+    of JAX's threefry stream that the public `a` of seeded ciphertexts is
+    drawn in (`jax_threefry_partitionable`, True by default in jax 0.9):
+    a port client and server must use the layout of the JAX peers they talk
+    to.
     """
 
     n_poly: int
@@ -246,6 +250,7 @@ class CkksContext:
     delta_bits: int
     device: torch.device = torch.device("cpu")
     error_sigma: float = 3.2    # RLWE noise stddev
+    threefry_partitionable: bool = True
 
     @property
     def n_limbs(self) -> int:
@@ -301,6 +306,7 @@ def make_context(
     delta_bits: int = 26,
     max_prime_bits: int = 30,
     device=None,
+    threefry_partitionable: bool = True,
 ) -> CkksContext:
     """Build a context on `device` (CUDA unless the caller names another).
     Defaults mirror the paper: 4096 slots (N=8192), depth 1, 128-bit
@@ -317,11 +323,14 @@ def make_context(
             f"{sum(q.bit_length() for q in primes)} vs 2*delta_bits="
             f"{2 * delta_bits}; add limbs or shrink delta")
     return CkksContext(n_poly=n_poly, primes=primes, delta_bits=delta_bits,
-                       device=dev)
+                       device=dev,
+                       threefry_partitionable=bool(threefry_partitionable))
 
 
 def make_test_context(n_poly: int = 256, n_limbs: int = 2,
-                      delta_bits: int = 20, device=None) -> CkksContext:
+                      delta_bits: int = 20, device=None,
+                      threefry_partitionable: bool = True) -> CkksContext:
     """Small context for tests and examples."""
     return make_context(n_poly=n_poly, n_limbs=n_limbs,
-                        delta_bits=delta_bits, device=device)
+                        delta_bits=delta_bits, device=device,
+                        threefry_partitionable=threefry_partitionable)

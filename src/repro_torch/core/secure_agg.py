@@ -12,8 +12,13 @@ Data flow per round (single-key setup):
   client:  enc_glob = decode(Dec(sk, ct_glob))
            W_glob = unflatten(merge(enc_glob, plain_glob))
 
-Everything runs on the context's device.  The seeded, transcipher and
-sharded paths of the JAX package are not ported yet.
+Over the wire (repro_torch.wire) the client encrypts with the seeded
+secret-key path instead (`client_protect_seeded`): c1 is regenerated from a
+public seed, so the client ships (seed, c0), and the server folds the
+arriving chunks with `wire.StreamIngest`.
+
+Everything runs on the context's device.  The transcipher and sharded paths
+of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
@@ -82,6 +87,26 @@ class SelectiveHEAggregator:
         enc_vals, plain = packing.split_by_mask(
             vec.to(self.ctx.device), self.part)
         ct = cipher.encrypt_values(self.ctx, pk, enc_vals, gen)
+        if self.cfg.dp_b > 0:
+            plain = dp.laplace_noise_vec(plain, gen, self.cfg.dp_b)
+        return ProtectedUpdate(ct=ct, plain=plain)
+
+    def client_protect_seeded(self, params, sk: dict, gen: torch.Generator,
+                              a_seed: int,
+                              derive: int = cipher.DERIVE_FOLD_CHUNK
+                              ) -> ProtectedUpdate:
+        """client_protect through the seeded secret-key encrypt: c1 is
+        JAX's public stream for `a_seed`, so `wire.seed_compress` can ship
+        (seed, c0) and halve the ciphertext bytes.  `a_seed` must be unique
+        per (client, round); `derive` is the per-chunk seed-derivation id
+        the wire advertises.  The noise (and the optional Laplace noise on
+        the plaintext part) comes from `gen`."""
+        vec, _ = packing.flatten_params(params)
+        enc_vals, plain = packing.split_by_mask(
+            vec.to(self.ctx.device), self.part)
+        del vec
+        ct = cipher.encrypt_values_seeded(self.ctx, sk, enc_vals, gen,
+                                          a_seed, derive=derive)
         if self.cfg.dp_b > 0:
             plain = dp.laplace_noise_vec(plain, gen, self.cfg.dp_b)
         return ProtectedUpdate(ct=ct, plain=plain)

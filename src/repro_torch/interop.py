@@ -3,25 +3,36 @@
 The JAX package holds residues as u32 arrays; the port holds them as int32
 tensors with the same bits.  These functions take and give numpy arrays
 (`np.asarray` of JAX outputs), so this module imports no JAX: keys,
-ciphertexts and context primes cross over unchanged.
+ciphertexts, protected and seeded updates and context primes cross over
+unchanged.  A `StreamIngest` checkpoint needs no converter: its
+`export_state` arrays have the JAX package's layout in both packages.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.ckks.cipher import Ciphertext
+from repro_torch.core.ckks.cipher import DERIVE_FOLD_CHUNK, Ciphertext
 from repro_torch.core.ckks.params import CkksContext
+from repro_torch.core.secure_agg import ProtectedUpdate
 
 
 def residues_from_np(arr, device) -> torch.Tensor:
-    """u32 numpy residues -> int32 tensor (same bits) on `device`."""
+    """u32 numpy residues -> int32 tensor (same bits) on `device`; an int32
+    tensor is only moved."""
+    if isinstance(arr, torch.Tensor):
+        if arr.dtype != torch.int32:
+            raise TypeError(f"expected int32 residues, got {arr.dtype}")
+        return arr.to(device)
     a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint32))
     return torch.from_numpy(a.view(np.int32).copy()).to(device)
 
 
-def residues_to_np(t: torch.Tensor) -> np.ndarray:
-    """int32 tensor -> u32 numpy residues (same bits)."""
+def residues_to_np(t) -> np.ndarray:
+    """int32 tensor -> u32 numpy residues (same bits); an array goes
+    through np.asarray(t, uint32)."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t, dtype=np.uint32)
     if t.dtype != torch.int32:
         raise TypeError(f"expected int32 residues, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
@@ -46,6 +57,35 @@ def ciphertext_from_np(data, scale: float, device) -> Ciphertext:
 def ciphertext_to_np(ct: Ciphertext) -> tuple[np.ndarray, float]:
     """-> (u32 data, scale), the fields of a JAX `Ciphertext`."""
     return residues_to_np(ct.data), float(ct.scale)
+
+
+def protected_update_from_np(data, scale: float, plain,
+                             device) -> ProtectedUpdate:
+    """A JAX `ProtectedUpdate`'s ct (u32 data, scale) and float32 plain ->
+    the port's ProtectedUpdate on `device`."""
+    return ProtectedUpdate(
+        ct=ciphertext_from_np(data, scale, device),
+        plain=torch.from_numpy(np.asarray(plain, dtype=np.float32).copy())
+        .to(device))
+
+
+def protected_update_to_np(upd: ProtectedUpdate):
+    """-> (u32 data, scale, float32 plain), the fields of a JAX
+    ProtectedUpdate."""
+    data, scale = ciphertext_to_np(upd.ct)
+    return data, scale, upd.plain.detach().cpu().numpy()
+
+
+def seeded_from_np(c0, seed: int, scale: float, device,
+                   chunk_offset: int = 0, derive: int = DERIVE_FOLD_CHUNK):
+    """A JAX `SeededCiphertext`'s fields -> the port's
+    `wire.SeededCiphertext`, c0 an int32 tensor on `device`."""
+    from repro_torch.wire.compress import SeededCiphertext  # the wire
+    # layer converts residues with this module
+    return SeededCiphertext(c0=residues_from_np(c0, device), seed=int(seed),
+                            scale=float(scale),
+                            chunk_offset=int(chunk_offset),
+                            derive=int(derive))
 
 
 def check_context(ctx: CkksContext, primes, n_poly: int | None = None,

@@ -1,8 +1,11 @@
-// Fused encrypted FedAvg: sum_c w_c (*) ct_c mod q_l over the client axis,
-// for Hopper (sm_90a), all RNS limbs in one launch.
+// Encrypted FedAvg kernels for Hopper (sm_90a), all RNS limbs in one launch:
 //
-// Replaces: src/repro/kernels/he_agg.py `_agg_body` /
-// `he_weighted_sum_fused` (the server's aggregation).
+// weighted_sum: sum_c w_c (*) ct_c mod q_l over the client axis.
+//   Replaces src/repro/kernels/he_agg.py `_agg_body` /
+//   `he_weighted_sum_fused` (the server's in-memory aggregation).
+// weighted_accum_chunks: acc[k] + w[k] (*) ct[k] mod q_l for every row k.
+//   Replaces src/repro/kernels/he_agg.py `_accum_chunks_body` /
+//   `he_weighted_accum_chunks_fused` (the streaming ingest's flush).
 //
 // Layout: cts is a contiguous u32[C, E] stack of C client tensors of E
 // elements each; out is u32[E].  The element's limb is
@@ -15,6 +18,15 @@
 // clients, reading each ciphertext element once and writing the sum once:
 // (C + 1) * 4 bytes per element against C Montgomery products.  Modular sums
 // are exact, so the client order changes no bit.
+//
+// weighted_accum_chunks reads acc and ct and writes out (12 bytes per
+// element against one Montgomery product), so it is bound by device memory
+// too.  One thread per element, grid-stride; the row is
+// (idx >> log_inner) / row_steps and the limb (idx >> log_inner) % L, so it
+// reads the ciphertext layout [K, L, 2, N] (or the ops layout
+// [K, ..., L, N]) in place.  out may alias acc: each element is read and
+// written by the same thread, which is how the ingest updates its dense
+// accumulator in place.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -46,6 +58,27 @@ __global__ void weighted_sum_kernel(uint32_t* __restrict__ out,
   }
 }
 
+// out[idx] = acc[idx] + w[row, limb] (*) ct[idx]; out may alias acc, so
+// neither carries __restrict__.
+__global__ void weighted_accum_chunks_kernel(
+    uint32_t* out, const uint32_t* acc, const uint32_t* __restrict__ ct,
+    const uint32_t* __restrict__ w, const uint32_t* __restrict__ qs,
+    const uint32_t* __restrict__ qinv, long long total, int n_limbs,
+    int log_inner, int row_steps) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += step) {
+    const unsigned r = (unsigned)(idx >> log_inner);
+    const unsigned limb = r % (unsigned)n_limbs;
+    const unsigned row = r / (unsigned)row_steps;
+    const uint32_t q = qs[limb];
+    out[idx] = mod_add(acc[idx],
+                       mont_mul(ct[idx], w[row * n_limbs + limb], q,
+                                qinv[limb]),
+                       q);
+  }
+}
+
 }  // namespace
 
 // cts: contiguous u32[C, per_client]; w: contiguous u32[C, L]; out:
@@ -62,5 +95,25 @@ extern "C" int weighted_sum_launch(uint32_t* out, const uint32_t* cts,
                         (cudaStream_t)stream>>>(out, cts, w, qs, qinv,
                                                 per_client, n_clients, n_limbs,
                                                 log_inner);
+  return (int)cudaGetLastError();
+}
+
+// acc, ct, out: contiguous u32[total] views of [K, ...] rows; w: contiguous
+// u32[K, L].  row_steps = limb steps (runs of 2^log_inner elements) per row;
+// limb = (idx >> log_inner) % L.
+extern "C" int weighted_accum_chunks_launch(uint32_t* out, const uint32_t* acc,
+                                            const uint32_t* ct,
+                                            const uint32_t* w,
+                                            const uint32_t* qs,
+                                            const uint32_t* qinv,
+                                            long long total, int n_limbs,
+                                            int log_inner, int row_steps,
+                                            void* stream) {
+  const int threads = 256;
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > (1LL << 30)) blocks = 1LL << 30;
+  weighted_accum_chunks_kernel<<<(unsigned)blocks, threads, 0,
+                                 (cudaStream_t)stream>>>(
+      out, acc, ct, w, qs, qinv, total, n_limbs, log_inner, row_steps);
   return (int)cudaGetLastError();
 }

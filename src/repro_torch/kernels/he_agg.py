@@ -1,13 +1,14 @@
 """Fused encrypted FedAvg aggregation over all RNS limbs, one CUDA launch.
 
 The server hot loop of the paper is  sum_i alpha_i * [[W_i]]  over client
-ciphertexts.  Wrapper over `csrc/he_agg.cu` (which replaces the JAX
-package's Pallas `he_weighted_sum_fused`): each ciphertext element is read
-once and the weighted sum is written once.  The kernel reads the stacked
-client tensors in their own layout, with the limb axis either at -2 (the
-ops layout [C, ..., L, N]) or at -3 (ciphertexts [C, ..., L, 2, N]), so no
-relayout copy is made.  On a CPU tensor the wrapper runs the plain version
-in `ref.py`.
+ciphertexts.  Wrappers over `csrc/he_agg.cu`, which replaces the JAX
+package's Pallas `he_weighted_sum_fused` (in-memory aggregation) and
+`he_weighted_accum_chunks_fused` (the streaming ingest's flush,
+acc[k] + w[k] (*) ct[k]).  Each element is read once and written once.  The
+kernels read their tensors in their own layout, with the limb axis either
+at -2 (the ops layout [..., L, N]) or at -3 (ciphertexts [..., L, 2, N]),
+so no relayout copy is made.  On a CPU tensor a wrapper runs the plain
+version in `ref.py`.
 """
 from __future__ import annotations
 
@@ -57,3 +58,53 @@ def he_weighted_sum_fused(cts, w_mont, qs, qinv_negs, limb_axis: int = -2):
 
 
 he_weighted_sum_fused.launches = 0
+
+
+def he_weighted_accum_chunks_fused(acc, cts, w_mont, qs, qinv_negs,
+                                   limb_axis: int = -2, out=None):
+    """acc[k] + w[k] (*) ct[k] mod q_l for every row k, one launch.
+
+    acc, cts: int32[K, ..., L, ...] of one shape with the limb axis at
+    `limb_axis` (-2 or -3); w_mont: int32[K, L] per-row weights; qs,
+    qinv_negs: int32[L].  `out` (default: a new tensor) may be `acc`
+    itself, which updates the accumulator in place.  Returns `out`."""
+    if cts.device.type == "cpu":
+        res = _ref.he_weighted_accum_chunks_fused(acc, cts, w_mont, qs,
+                                                  qinv_negs, limb_axis)
+        return res if out is None else out.copy_(res)
+    _build.require_cuda("weighted_accum_chunks", cts)
+    if limb_axis not in (-2, -3) or cts.dim() < 1 - limb_axis:
+        raise ValueError(f"weighted_accum_chunks: limb_axis {limb_axis} "
+                         f"does not fit cts {tuple(cts.shape)}")
+    k, l = cts.shape[0], cts.shape[limb_axis]
+    inner = math.prod(cts.shape[limb_axis + 1:])
+    log_inner = _build.log2_exact(inner,
+                                  "weighted_accum_chunks: elements per limb")
+    out = torch.empty_like(cts) if out is None else out
+    for name, t in (("cts", cts), ("acc", acc), ("out", out)):
+        _build.check_int32(f"weighted_accum_chunks {name}", t, cts.device)
+        if t.shape != cts.shape:
+            raise ValueError(f"weighted_accum_chunks: {name} "
+                             f"{tuple(t.shape)} != cts {tuple(cts.shape)}")
+    _build.check_int32("weighted_accum_chunks w_mont", w_mont, cts.device)
+    if tuple(w_mont.shape) != (k, l):
+        raise ValueError(f"weighted_accum_chunks: w_mont "
+                         f"{tuple(w_mont.shape)} != ({k}, {l})")
+    for name, t in (("qs", qs), ("qinv_negs", qinv_negs)):
+        _build.check_int32(f"weighted_accum_chunks {name}", t, cts.device)
+        if t.shape != (l,):
+            raise ValueError(f"weighted_accum_chunks: {name} "
+                             f"{tuple(t.shape)} != ({l},)")
+    total = cts.numel()
+    if total >> log_inner >= 1 << 32:
+        raise ValueError("weighted_accum_chunks: more than 2**32 limb rows")
+    if total:
+        row_steps = (total >> log_inner) // k
+        _build.launch("he_agg", "weighted_accum_chunks_launch", out, acc,
+                      cts, w_mont, qs, qinv_negs, total, l, log_inner,
+                      row_steps)
+        he_weighted_accum_chunks_fused.launches += 1
+    return out
+
+
+he_weighted_accum_chunks_fused.launches = 0

@@ -6,8 +6,8 @@ tensor in one call.  Per-limb constants come from the context's device
 tables (`CkksContext.device_tables`), sliced to the input's limb count, so
 limb-dropped ciphertexts work unchanged.
 
-The four ops with a kernel (`ntt_fwd`, `ntt_inv`, `mul_add`,
-`weighted_sum`) go to their wrappers, which launch the CUDA kernel for a
+The five ops with a kernel (`ntt_fwd`, `ntt_inv`, `mul_add`,
+`weighted_sum`, `weighted_accum_chunks`) go to their wrappers, which launch the CUDA kernel for a
 CUDA tensor and run the plain version for a CPU tensor: the device decides,
 there is no backend switch.  The limb-wise helpers (`mod_add`, `mod_sub`,
 `mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of their own
@@ -28,6 +28,7 @@ KERNELS = {
     "ntt_inv": _ntt.ntt_inv_fused,
     "mul_add": _pointwise.mul_add_fused,
     "weighted_sum": _he_agg.he_weighted_sum_fused,
+    "weighted_accum_chunks": _he_agg.he_weighted_accum_chunks_fused,
 }
 
 
@@ -86,6 +87,22 @@ def weighted_sum(cts, w_mont, ctx, limb_axis: int = -2):
     t = _tables(ctx, l)
     return _he_agg.he_weighted_sum_fused(cts, w_mont[:, :l].contiguous(),
                                          t.qs, t.qinv_negs, limb_axis)
+
+
+def weighted_accum_chunks(acc, cts, w_mont, ctx, limb_axis: int = -2,
+                          out=None):
+    """Batched streaming flush: acc[k] + w[k] (*) ct[k] for every ready row
+    k in one launch.
+
+    acc, cts: int32[K, ..., L, N] (or, with limb_axis=-3, ciphertext rows
+    int32[K, ..., L, 2, N]); w_mont: int32[K, L'] per-row Montgomery
+    weights with L' >= L.  Bit-identical to folding the rows one at a time.
+    `out` may be `acc` (in-place update)."""
+    l = cts.shape[limb_axis]
+    t = _tables(ctx, l)
+    return _he_agg.he_weighted_accum_chunks_fused(
+        acc, cts, w_mont[:, :l].contiguous(), t.qs, t.qinv_negs, limb_axis,
+        out=out)
 
 
 # ---------------------------------------------------------------------------

@@ -146,3 +146,22 @@ def he_weighted_sum_fused(cts, w_mont, qs, qinv_negs, limb_axis: int = -2):
         acc = mod_add(acc, mont_mul(cts[i], w_mont[i].reshape(lshape), q, qi),
                       q)
     return acc
+
+
+def he_weighted_accum_chunks_fused(acc, cts, w_mont, qs, qinv_negs,
+                                   limb_axis: int = -2):
+    """Batched streaming flush: acc[k] + w[k] (*) ct[k] mod q_l for every
+    row k, all limbs.
+
+    acc, cts: int32[K, ..., L, ...] of one shape, with the limb axis at
+    `limb_axis` (-2 for the ops layout [K, ..., L, N], -3 for ciphertexts
+    [K, ..., L, 2, N]); w_mont: int32[K, L] per-row Montgomery weights
+    (rows may belong to different clients).  The same arithmetic as folding
+    each row alone with `mul_add`."""
+    trail = -limb_axis - 1                    # axes after the limb axis
+    k, l = cts.shape[0], cts.shape[limb_axis]
+    lshape = (l,) + (1,) * trail
+    wb = w_mont.reshape((k,) + (1,) * (cts.dim() - 2 - trail) + lshape)
+    return mod_add(acc, mont_mul(cts, wb, qs.reshape(lshape),
+                                 qinv_negs.reshape(lshape)),
+                   qs.reshape(lshape))

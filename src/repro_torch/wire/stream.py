@@ -1,0 +1,554 @@
+"""Streaming uplink: one client's update as a frame stream, and the server's
+chunk-by-chunk ingest into a running modular accumulator (the JAX package's
+`repro.wire.stream`, byte- and bit-identical).
+
+Client side, `pack_update_frames()` emits per update:
+
+    UPDATE_BEGIN   (cid, n_samples, round, n_chunks, ct_kind)
+    CT_CHUNK * n   (chunk_idx + one one-chunk ciphertext/seeded frame)
+    PLAIN_SEGMENT  (quantized plaintext partition)
+    UPDATE_END
+
+Server side, `StreamIngest.ingest()` parses and validates one update's
+frames, buffers its chunks, and folds them in ONE launch of the
+`weighted_accum_chunks` kernel:
+
+    acc[k] = acc[k] + w[k] (*) ct[k]    for every ready row k
+
+so launches are O(clients), not O(clients * n_chunks) (`accum_launches`),
+and at most one update's chunks are resident beside the accumulator
+(`peak_chunk_buffers`).  The modular sums are exact, so the streamed
+aggregate equals the in-memory weighted_sum bit for bit.
+
+On the card, the flush does in batches what the reference does per chunk:
+
+  * a buffered seeded chunk keeps its c0 row on the host; the flush gathers
+    the update's c0 rows into one host buffer, copies it to the device once,
+    and expands every row's public `a` in batched threefry calls grouped by
+    (seed, derive), with each row's own chunk id.  A row's `a` depends only
+    on its own key, so no bit changes;
+  * the accumulator is one dense int32 tensor [n_chunks, L, 2, N] in the
+    ciphertext layout, updated in place by the kernel; `finalize` copies it
+    out without a stack;
+  * the plaintext accumulator stays on the device and folds as
+    acc += float32(w) * plain with a separate multiply and add, the
+    reference's numpy expression, so its bits match.
+
+Everything a rejected update could break is validated inside ingest's
+rollback scope (frame kinds, scale, dtype, shape, derive id, seed and chunk
+offset ranges), before the flush.  Not ported yet: transcipher updates
+(rejected with WireError), the `sharded=` engine, and telemetry (the
+counters are plain integer attributes).
+"""
+from __future__ import annotations
+
+import dataclasses
+import struct
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import interop
+from repro_torch.core.ckks import cipher, encoding, threefry
+from repro_torch.core.ckks.cipher import Ciphertext
+from repro_torch.core.ckks.params import CkksContext
+from repro_torch.core.secure_agg import ProtectedUpdate
+from repro_torch.kernels import ops
+from repro_torch.wire import compress as _c
+from repro_torch.wire import format as wf
+
+_BEGIN = struct.Struct("<IIIIB")
+
+CT_FULL = 0
+CT_SEEDED = 1
+CT_TRANSCIPHER = 2
+_CT_KINDS = (CT_FULL, CT_SEEDED, CT_TRANSCIPHER)
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateMeta:
+    cid: int
+    n_samples: int
+    round: int
+    n_chunks: int
+    seeded: bool
+    transcipher: bool = False
+
+
+# ---------------------------------------------------------------------------
+# client side: update -> frames
+# ---------------------------------------------------------------------------
+
+
+def pack_update_frames(upd: ProtectedUpdate, *, cid: int, n_samples: int,
+                       rnd: int = 0,
+                       seeded: _c.SeededCiphertext | None = None,
+                       plain_codec: str = "f32",
+                       version: int | None = None) -> bytes:
+    """One client's ProtectedUpdate -> concatenated wire frames.
+
+    `seeded` (compress.seed_compress of the same encryption) makes each
+    CT_CHUNK carry (seed, c0 row) instead of the full row, with its derive
+    id in every v2 seeded frame.  `plain_codec` is f32, f16 or i8;
+    `version` pins every frame (v1 needs DERIVE_FOLD_CHUNK).  Returns
+    UPDATE_BEGIN + CT_CHUNK * n_chunks + PLAIN_SEGMENT + UPDATE_END."""
+    n_chunks = int(upd.ct.data.shape[0])
+    kind = CT_SEEDED if seeded is not None else CT_FULL
+    out = [wf.frame(wf.T_UPDATE_BEGIN,
+                    _BEGIN.pack(cid, n_samples, rnd, n_chunks, kind),
+                    version=version)]
+    ct_host = interop.residues_to_np(seeded.c0 if seeded is not None
+                                  else upd.ct.data)
+    for b in range(n_chunks):
+        if seeded is not None:
+            chunk = _c.SeededCiphertext(c0=ct_host[b:b + 1],
+                                        seed=seeded.seed, scale=seeded.scale,
+                                        chunk_offset=b,
+                                        derive=seeded.derive)
+            inner = wf.serialize_seeded_ciphertext(chunk, version=version)
+        else:
+            inner = wf.serialize_ciphertext(Ciphertext(
+                data=ct_host[b:b + 1], scale=upd.ct.scale), version=version)
+        out.append(wf.frame(wf.T_CT_CHUNK, struct.pack("<I", b) + inner,
+                            version=version))
+    arr, qscale = _c.quantize_plain(upd.plain, plain_codec)
+    out.append(wf.serialize_plain_segment(arr, plain_codec, qscale,
+                                          version=version))
+    out.append(wf.frame(wf.T_UPDATE_END, b"", version=version))
+    return b"".join(out)
+
+
+def peek_update_meta(blob: bytes) -> UpdateMeta:
+    """Read only the UPDATE_BEGIN header (e.g. to compute FedAvg weights
+    before ingesting)."""
+    ftype, _, payload, _ = wf.parse_frame(blob, 0)
+    if ftype != wf.T_UPDATE_BEGIN:
+        raise wf.WireError(f"expected UPDATE_BEGIN, got {ftype:#x}")
+    try:
+        cid, n_samples, rnd, n_chunks, kind = _BEGIN.unpack_from(payload, 0)
+    except struct.error as e:
+        raise wf.WireError(f"short UPDATE_BEGIN payload: {e}") from e
+    return UpdateMeta(cid=cid, n_samples=n_samples, round=rnd,
+                      n_chunks=n_chunks, seeded=kind == CT_SEEDED,
+                      transcipher=kind == CT_TRANSCIPHER)
+
+
+# ---------------------------------------------------------------------------
+# server side: streaming modular accumulator
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Ready:
+    """One buffered ciphertext row waiting for the next flush.
+
+    data is a u32 numpy row [L, 2, N] (full chunk), a u32 numpy c0 row
+    [L, N] (seeded chunk: seed/derive/a_row name its `a`), or a device
+    int32 row [L, 2, N] (in-memory ingest)."""
+
+    chunk_idx: int
+    w_mont: np.ndarray                 # int32[L] Montgomery weight
+    data: Any
+    seeded: bool = False
+    seed: int = 0
+    derive: int = cipher.DERIVE_FOLD_CHUNK
+    a_row: int = 0
+
+
+class StreamIngest:
+    """Accumulates arriving client updates chunk by chunk.
+
+    Usage:
+        ingest = StreamIngest(ctx)
+        for blob, w in arriving:
+            ingest.ingest(blob, weight=w)
+        agg = ingest.finalize()    # ProtectedUpdate, scale = in_scale*delta
+
+    Attributes (plain integers):
+        accum_launches: accumulate launches (one per flush with ready rows).
+        peak_chunk_buffers: most decoded-but-unfolded rows ever resident.
+        clients_ingested, bytes_ingested, rejected_updates: ingest counts.
+    """
+
+    def __init__(self, ctx: CkksContext):
+        self.ctx = ctx
+        self._acc = None             # int32[n_rows, L, 2, N], dense
+        self._acc_plain = None       # float32[n_plain] on ctx.device
+        self._rows: set[int] = set()  # chunk indices folded so far
+        self._shape = None           # (L, N) pinned by the first chunk
+        self._in_scale = None
+        self._pending: list[_Ready] = []
+        self._resident = 0
+        self.accum_launches = 0
+        self.clients_ingested = 0
+        self.bytes_ingested = 0
+        self.peak_chunk_buffers = 0
+        self.rejected_updates = 0
+
+    # -- internals ----------------------------------------------------------
+
+    def _w_mont(self, weight: float) -> np.ndarray:
+        return encoding.encode_scalar_residues(float(weight),
+                                               self.ctx).view(np.int32)
+
+    def _note_decoded(self, n: int) -> None:
+        self._resident += n
+        self.peak_chunk_buffers = max(self.peak_chunk_buffers,
+                                      self._resident)
+
+    def _check_row(self, scale: float, dtype, shape) -> None:
+        """Validate one chunk against the running aggregation: scale, u32
+        residues, one row [1, L, 2, N] with the (L, N) the first chunk
+        pinned."""
+        if self._in_scale is None:
+            self._in_scale = float(scale)
+        elif abs(self._in_scale - scale) > 1e-6 * self._in_scale:
+            raise wf.WireError("mixed ciphertext scales in one aggregation")
+        if dtype != np.uint32:
+            raise wf.WireError(f"ciphertext chunk dtype {dtype} is not "
+                               "uint32")
+        shape = tuple(int(d) for d in shape)
+        if self._shape is None and len(shape) >= 3:
+            self._shape = (shape[-3], shape[-1])
+        want = (1, self._shape[0], 2, self._shape[1]) if self._shape else None
+        if shape != want:
+            raise wf.WireError(
+                f"ciphertext chunk shape {shape} does not match this "
+                f"aggregation's {want}")
+
+    def _buffer_wire_chunk(self, chunk_idx: int, inner, w_mont) -> None:
+        """Validate and queue one parsed CT_CHUNK payload."""
+        if isinstance(inner, _c.SeededCiphertext):
+            c0 = inner.c0
+            l, n = self.ctx.n_limbs, self.ctx.n_poly
+            if c0.ndim != 3 or c0.shape[1:] != (l, n):
+                raise wf.WireError(
+                    f"seeded chunk c0 {c0.shape} does not expand to this "
+                    f"context's ({l}, {n}) rows")
+            # the expansion runs at flush, outside the rollback scope: its
+            # key and chunk id must be valid now (JAX raises for both)
+            threefry.prng_key(inner.seed)
+            cipher.check_chunk_start(inner.chunk_offset, inner.derive)
+            self._check_row(inner.scale, c0.dtype, (c0.shape[0], l, 2, n))
+            row = _Ready(int(chunk_idx), w_mont, c0[0], seeded=True,
+                         seed=int(inner.seed), derive=int(inner.derive),
+                         a_row=int(inner.chunk_offset))
+        else:
+            data = interop.residues_to_np(inner.data)
+            self._check_row(inner.scale, np.dtype(np.uint32), data.shape)
+            row = _Ready(int(chunk_idx), w_mont, data[0])
+        self._pending.append(row)
+        self._note_decoded(+1)
+
+    def _rows_to_device(self, batch: list[_Ready]) -> torch.Tensor:
+        """The batch's ciphertext rows as int32[K, L, 2, N] on the device:
+        one host-to-device copy per kind of row, and every seeded row's
+        `a` expanded in one call per (seed, derive)."""
+        dev = self.ctx.device
+        k = len(batch)
+        l, n = self._shape
+        cts = torch.empty((k, l, 2, n), dtype=torch.int32, device=dev)
+
+        def sel(js):   # rows of cts: all of them, or an index tensor
+            return (slice(None) if len(js) == k
+                    else torch.tensor(js, dtype=torch.int64, device=dev))
+
+        host_full = [j for j, r in enumerate(batch)
+                     if not r.seeded and isinstance(r.data, np.ndarray)]
+        on_dev = [j for j, r in enumerate(batch)
+                  if isinstance(r.data, torch.Tensor)]
+        seeded = [j for j, r in enumerate(batch) if r.seeded]
+        if host_full:
+            rows = np.stack([batch[j].data for j in host_full])
+            cts[sel(host_full)] = torch.from_numpy(rows.view(np.int32)).to(
+                dev)
+        if on_dev:
+            cts[sel(on_dev)] = torch.stack([batch[j].data for j in on_dev])
+        if seeded:
+            rows = np.stack([batch[j].data for j in seeded])
+            cts[sel(seeded), :, 0, :] = torch.from_numpy(
+                rows.view(np.int32)).to(dev)
+            groups: dict[tuple[int, int], list[int]] = {}
+            for j in seeded:
+                groups.setdefault((batch[j].seed, batch[j].derive),
+                                  []).append(j)
+            for (seed, derive), js in groups.items():
+                ids = torch.tensor([batch[j].a_row for j in js],
+                                   dtype=torch.int64)
+                cts[sel(js), :, 1, :] = cipher.expand_a_for_ids(
+                    self.ctx, seed, ids, derive)
+        return cts
+
+    def _fold(self, batch: list[_Ready]) -> None:
+        """One accumulate launch over rows with distinct chunk indices."""
+        dev = self.ctx.device
+        cts = self._rows_to_device(batch)
+        ws = torch.from_numpy(np.stack([r.w_mont for r in batch])).to(dev)
+        idxs = [r.chunk_idx for r in batch]
+        l, n = self._shape
+        need = max(idxs) + 1
+        if self._acc is None or self._acc.shape[0] < need:
+            grown = torch.zeros((need, l, 2, n), dtype=torch.int32,
+                                device=dev)
+            if self._acc is not None:
+                grown[: self._acc.shape[0]] = self._acc
+            self._acc = grown
+        k = len(batch)
+        if idxs == list(range(k)):
+            view = self._acc[:k]
+            ops.weighted_accum_chunks(view, cts, ws, self.ctx, limb_axis=-3,
+                                      out=view)
+        else:
+            rows = torch.tensor(idxs, dtype=torch.int64, device=dev)
+            accs = self._acc.index_select(0, rows)
+            ops.weighted_accum_chunks(accs, cts, ws, self.ctx, limb_axis=-3,
+                                      out=accs)
+            self._acc.index_copy_(0, rows, accs)
+        self._rows.update(idxs)
+
+    def flush(self) -> None:
+        """Fold every ready row into the accumulator: one accumulate launch
+        per pass (a second pass only if one chunk index was buffered twice,
+        to keep arrival order)."""
+        while self._pending:
+            batch, rest, seen = [], [], set()
+            for item in self._pending:
+                if item.chunk_idx in seen:
+                    rest.append(item)
+                else:
+                    seen.add(item.chunk_idx)
+                    batch.append(item)
+            self._pending = rest
+            self._fold(batch)
+            self.accum_launches += 1
+            self._note_decoded(-len(batch))
+
+    def _plain_to_device(self, arr: np.ndarray, codec: str, qscale: float):
+        """Dequantize on the device (f16 and i8 move half or a quarter of
+        the bytes); the same float32 values as compress.dequantize_plain."""
+        dev = self.ctx.device
+        if arr.dtype in (np.float32, np.float16, np.int8):
+            plain = torch.from_numpy(arr).to(dev).to(torch.float32)
+            if codec == "i8":
+                plain = plain * float(np.float32(qscale))
+            return plain
+        return torch.from_numpy(_c.dequantize_plain(arr, codec, qscale)).to(
+            dev)
+
+    def _fold_plain(self, plain: torch.Tensor, weight: float) -> None:
+        """acc += float32(w) * plain: a separate float32 multiply and add,
+        as the reference's numpy expression rounds."""
+        if self._acc_plain is None:
+            self._acc_plain = torch.zeros(plain.shape, dtype=torch.float32,
+                                          device=self.ctx.device)
+        elif plain.shape != self._acc_plain.shape:
+            raise wf.WireError(
+                f"plain segment shape {tuple(plain.shape)} does not match "
+                f"this aggregation's {tuple(self._acc_plain.shape)}")
+        self._acc_plain += torch.mul(plain, float(np.float32(weight)))
+
+    # -- public API ---------------------------------------------------------
+
+    def ingest(self, blob: bytes, weight: float) -> UpdateMeta:
+        """Parse one client's frames, buffer its chunks, and flush them in
+        one accumulate launch.
+
+        The stream is validated against its own UPDATE_BEGIN header: the
+        received chunk indices must be exactly {0..n_chunks-1}.  A rejected
+        update raises WireError and leaves no trace in the state."""
+        meta = None
+        w_mont = self._w_mont(weight)
+        saw_end = False
+        chunks_seen: set[int] = set()
+        plain_segments = []            # folded only after validation
+        n_buffered = 0
+        prev_in_scale = self._in_scale
+        prev_shape = self._shape
+        try:
+            for ftype, _, payload in wf.iter_frames(blob):
+                if ftype == wf.T_UPDATE_BEGIN:
+                    cid, n_samples, rnd, n_chunks, kind = _BEGIN.unpack_from(
+                        payload, 0)
+                    if kind not in _CT_KINDS:
+                        raise wf.WireError(
+                            f"unknown ct_kind {kind} in UPDATE_BEGIN; this "
+                            f"build implements {_CT_KINDS}")
+                    if kind == CT_TRANSCIPHER:
+                        raise wf.WireError(
+                            "transcipher updates (ct_kind "
+                            f"{CT_TRANSCIPHER}) cannot be ingested: "
+                            "transcipher ingest is not ported yet")
+                    meta = UpdateMeta(cid, n_samples, rnd, n_chunks,
+                                      kind == CT_SEEDED)
+                elif ftype == wf.T_CT_CHUNK:
+                    if meta is None:
+                        raise wf.WireError("CT_CHUNK before UPDATE_BEGIN")
+                    (chunk_idx,) = struct.unpack_from("<I", payload, 0)
+                    if chunk_idx >= meta.n_chunks:
+                        raise wf.WireError(
+                            f"chunk index {chunk_idx} >= declared "
+                            f"n_chunks {meta.n_chunks}")
+                    if chunk_idx in chunks_seen:
+                        raise wf.WireError(f"duplicate chunk {chunk_idx}")
+                    chunks_seen.add(chunk_idx)
+                    inner, _ = wf.deserialize(payload, None, off=4)
+                    got = ("masked" if isinstance(inner, _c.MaskedChunk)
+                           else "seeded"
+                           if isinstance(inner, _c.SeededCiphertext)
+                           else "full")
+                    want = "seeded" if meta.seeded else "full"
+                    if got != want:
+                        raise wf.WireError(
+                            f"CT_CHUNK {chunk_idx} carries a {got} payload "
+                            f"but the update's declared ct_kind expects "
+                            f"{want}")
+                    self._buffer_wire_chunk(chunk_idx, inner, w_mont)
+                    n_buffered += 1
+                elif ftype == wf.T_TRANSCIPHER_SEED:
+                    if meta is None:
+                        raise wf.WireError(
+                            "TRANSCIPHER_SEED before UPDATE_BEGIN")
+                    raise wf.WireError(
+                        "TRANSCIPHER_SEED frame in a non-transcipher "
+                        "update (declared ct_kind is not CT_TRANSCIPHER)")
+                elif ftype == wf.T_PLAIN_SEGMENT:
+                    arr, codec, qscale = wf._parse_plain_segment(payload)
+                    ref_shape = (tuple(self._acc_plain.shape)
+                                 if self._acc_plain is not None
+                                 else plain_segments[0][0].shape
+                                 if plain_segments else None)
+                    if ref_shape is not None and arr.shape != ref_shape:
+                        raise wf.WireError(
+                            f"plain segment shape {arr.shape} does not "
+                            f"match this aggregation's {ref_shape}")
+                    plain_segments.append((arr, codec, qscale))
+                elif ftype == wf.T_UPDATE_END:
+                    saw_end = True
+                else:
+                    raise wf.WireError(f"unexpected frame type {ftype:#x} "
+                                       "in update stream")
+            if meta is None or not saw_end:
+                raise wf.WireError("truncated update stream")
+            if len(chunks_seen) != meta.n_chunks:
+                raise wf.WireError(
+                    f"update declared {meta.n_chunks} chunks, "
+                    f"received {len(chunks_seen)}")
+        except Exception as e:
+            # rejected update: nothing of it may reach the accumulator
+            if n_buffered:
+                del self._pending[len(self._pending) - n_buffered:]
+                self._note_decoded(-n_buffered)
+            self._in_scale = prev_in_scale
+            self._shape = prev_shape
+            self.rejected_updates += 1
+            if isinstance(e, wf.WireError):
+                raise
+            raise wf.WireError(f"malformed update stream: {e!r}") from e
+        for arr, codec, qscale in plain_segments:
+            self._fold_plain(self._plain_to_device(arr, codec, qscale),
+                             weight)
+        self.flush()
+        self.clients_ingested += 1
+        self.bytes_ingested += len(blob)
+        return meta
+
+    def ingest_update(self, upd: ProtectedUpdate, weight: float) -> None:
+        """In-memory streaming (no serialization): the caller holds the
+        whole decoded update; its rows are folded in one flush."""
+        data = upd.ct.data
+        if data.dtype != torch.int32 or data.dim() != 4:
+            raise wf.WireError(f"update data {data.dtype} "
+                               f"{tuple(data.shape)} is not int32 "
+                               "[B, L, 2, N] residues")
+        w_mont = self._w_mont(weight)
+        self._check_row(upd.ct.scale, np.dtype(np.uint32),
+                        (1,) + tuple(data.shape[1:]))
+        for b in range(data.shape[0]):
+            self._pending.append(_Ready(b, w_mont,
+                                        data[b].to(self.ctx.device)))
+            self._note_decoded(+1)
+        self.flush()
+        self._fold_plain(upd.plain.to(self.ctx.device, torch.float32),
+                         weight)
+        self.clients_ingested += 1
+
+    # -- checkpointing ---------------------------------------------------------
+
+    def export_state(self) -> tuple[dict, dict]:
+        """-> (arrays, meta) in the JAX package's exact layout: chunk_idx
+        int32[K], acc_ct u32[K, 2, L, N], acc_plain float32; meta holds the
+        scale and the counters.  A JAX StreamIngest restores it and the
+        other way round.  Raises RuntimeError with unflushed rows."""
+        if self._pending:
+            raise RuntimeError("cannot export StreamIngest state with "
+                               "unflushed chunks pending; call flush()")
+        idxs = sorted(self._rows)
+        if idxs:
+            rows = torch.tensor(idxs, dtype=torch.int64,
+                                device=self._acc.device)
+            acc = self._acc.index_select(0, rows).movedim(-3, -2)
+            acc_ct = interop.residues_to_np(acc)
+        else:
+            acc_ct = np.zeros((0, 2, 0, 0), dtype=np.uint32)
+        arrays = {
+            "chunk_idx": np.asarray(idxs, dtype=np.int32),
+            "acc_ct": acc_ct,
+            "acc_plain": (self._acc_plain.cpu().numpy().copy()
+                          if self._acc_plain is not None
+                          else np.zeros((0,), dtype=np.float32)),
+        }
+        meta = {
+            "in_scale": self._in_scale,
+            "has_plain": self._acc_plain is not None,
+            "clients": self.clients_ingested,
+            "bytes": self.bytes_ingested,
+            "launches": self.accum_launches,
+            "rejected": self.rejected_updates,
+        }
+        return arrays, meta
+
+    def restore_state(self, arrays: dict, meta: dict) -> None:
+        """Load a checkpointed accumulator (the export_state inverse, from
+        this port or the JAX package) into this empty ingest; the counters
+        resume at their checkpointed values."""
+        if self._acc is not None or self._pending or self.clients_ingested:
+            raise RuntimeError("restore_state needs a fresh StreamIngest")
+        idxs = [int(i) for i in np.asarray(arrays["chunk_idx"]).tolist()]
+        acc = np.asarray(arrays["acc_ct"], dtype=np.uint32)
+        if idxs:
+            l, n = int(acc.shape[-2]), int(acc.shape[-1])
+            self._shape = (l, n)
+            dev = self.ctx.device
+            self._acc = torch.zeros((max(idxs) + 1, l, 2, n),
+                                    dtype=torch.int32, device=dev)
+            self._acc[torch.tensor(idxs, dtype=torch.int64, device=dev)] = \
+                interop.residues_from_np(acc, dev).movedim(-2, -3)
+            self._rows = set(idxs)
+        if meta.get("has_plain"):
+            self._acc_plain = torch.from_numpy(np.asarray(
+                arrays["acc_plain"], dtype=np.float32).copy()).to(
+                    self.ctx.device)
+        if meta.get("in_scale") is not None:
+            self._in_scale = float(meta["in_scale"])
+        self.clients_ingested += int(meta.get("clients", 0))
+        self.bytes_ingested += int(meta.get("bytes", 0))
+        self.accum_launches += int(meta.get("launches", 0))
+        self.rejected_updates += int(meta.get("rejected", 0))
+
+    def finalize(self) -> ProtectedUpdate:
+        """-> the aggregated ProtectedUpdate (ct scale = in_scale * delta),
+        a copy of the accumulators (the ingest may go on).  Raises
+        WireError if nothing arrived or chunk indices have holes."""
+        self.flush()
+        if self.clients_ingested == 0 or self._acc is None:
+            raise wf.WireError("no updates ingested")
+        n_chunks = max(self._rows) + 1
+        if sorted(self._rows) != list(range(n_chunks)):
+            raise wf.WireError("missing ciphertext chunks at finalize")
+        ct = Ciphertext(data=self._acc[:n_chunks].clone(),
+                        scale=self._in_scale * self.ctx.delta)
+        plain = (self._acc_plain.clone() if self._acc_plain is not None
+                 else torch.zeros((0,), dtype=torch.float32,
+                                  device=self.ctx.device))
+        return ProtectedUpdate(ct=ct, plain=plain)

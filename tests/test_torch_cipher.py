@@ -204,3 +204,90 @@ def test_interop_round_trips_keys_and_ciphertexts(jax_material):
         np.asarray(j["jct"].data), j["jct"].scale, "cpu"))
     assert data.dtype == np.uint32 and scale == j["jct"].scale
     np.testing.assert_array_equal(data, np.asarray(j["jct"].data))
+
+
+# ---------------------------------------------------------------------------
+# seeded encrypt, rescale, drop_limbs, mul_plain_vec (the wire slice)
+# ---------------------------------------------------------------------------
+
+
+def _ctxs_l(n, l, partitionable=True):
+    return (jparams.make_test_context(n_poly=n, n_limbs=l, delta_bits=12),
+            tparams.make_test_context(n_poly=n, n_limbs=l, delta_bits=12,
+                                      device="cpu",
+                                      threefry_partitionable=partitionable))
+
+
+def _jax_seeded_noise(key, b, n):
+    """The gaussian symbols JAX's seeded encrypt draws: chunk i from
+    fold_in(key, i), rint(sigma * normal(N))."""
+    keys = jax.vmap(lambda i: jax.random.fold_in(key, i))(jnp.arange(b))
+    return np.stack([np.asarray(jnp.rint(SIGMA * jax.random.normal(
+        k, (n,))).astype(jnp.int32)) for k in keys])
+
+
+@pytest.mark.parametrize("derive", [jcipher.DERIVE_FOLD_CHUNK,
+                                    jcipher.DERIVE_CTR])
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_seeded_encrypt_bit_identical_with_jax_noise(partitionable, derive):
+    """The same coefficients and the same gaussian symbols (drawn through
+    JAX's per-chunk keys) give the JAX package's seeded ciphertext."""
+    jctx, tctx = _ctxs_l(256, 3, partitionable)
+    rng = np.random.RandomState(11)
+    coeffs = jref.rand_limbed_np(rng, jctx, (3,))
+    key = jax.random.PRNGKey(4)
+    with jax.threefry_partitionable(partitionable):
+        sk, _ = jcipher.keygen(jctx, jax.random.PRNGKey(0))
+        want = jcipher.encrypt_coeffs_seeded(jctx, sk, jnp.asarray(coeffs),
+                                             key, a_seed=2 ** 40 + 3,
+                                             derive=derive)
+        e = _jax_seeded_noise(key, 3, jctx.n_poly)
+    tsk = interop.keys_from_np({k: np.asarray(v) for k, v in sk.items()},
+                               "cpu")
+    got = tcipher.encrypt_coeffs_seeded_from_samples(
+        tctx, tsk, interop.residues_from_np(coeffs, "cpu"),
+        torch.from_numpy(e), 2 ** 40 + 3, derive=derive)
+    np.testing.assert_array_equal(interop.residues_to_np(got.data),
+                                  np.asarray(want.data))
+    assert got.scale == want.scale
+
+
+def test_seeded_encrypt_with_generator_decrypts():
+    """The sampled seeded path: noise from a torch.Generator, c1 from the
+    public stream; decrypts within the CKKS noise."""
+    _, tctx = _ctxs(256)
+    gen = torch.Generator().manual_seed(3)
+    sk, _ = tcipher.keygen(tctx, gen)
+    vals = torch.randn(2, tctx.slots, generator=gen)
+    ct = tcipher.encrypt_values_seeded(tctx, sk, vals, gen, a_seed=9,
+                                       derive=tcipher.DERIVE_CTR)
+    assert torch.equal(ct.c1, tcipher.expand_a(tctx, 9, 2,
+                                               tcipher.DERIVE_CTR))
+    dec = tcipher.decrypt_values_np(tctx, sk, ct)
+    assert np.abs(dec - vals.numpy()).max() < 1e-3
+
+
+@pytest.mark.parametrize("l", [2, 3])
+def test_rescale_drop_limbs_and_mul_plain_vec_bit_identical(l):
+    jctx, tctx = _ctxs_l(256, l)
+    rng = np.random.RandomState(12 + l)
+    data = np.ascontiguousarray(
+        jref.rand_limbed_np(rng, jctx, (2, 2)).transpose(0, 2, 1, 3))
+    jct = jcipher.Ciphertext(data=jnp.asarray(data), scale=2.0 ** 24)
+    tct = interop.ciphertext_from_np(data, 2.0 ** 24, "cpu")
+    # jitted: the reference's eager rescale dispatches its unrolled NTT
+    # stages op by op, seconds on the CPU
+    jrescale = jax.jit(jcipher.rescale, static_argnums=0)
+    jdrop = jax.jit(jcipher.drop_limbs, static_argnums=(0, 2))
+    for j, t in ((jrescale(jctx, jct), tcipher.rescale(tctx, tct)),
+                 (jdrop(jctx, jct, 1), tcipher.drop_limbs(tctx, tct, 1))):
+        np.testing.assert_array_equal(interop.residues_to_np(t.data),
+                                      np.asarray(j.data))
+        assert t.scale == j.scale
+    pt = jref.rand_limbed_np(rng, jctx, ())
+    np.testing.assert_array_equal(
+        interop.residues_to_np(tcipher.mul_plain_vec(
+            tctx, tct, interop.residues_from_np(pt, "cpu")).data),
+        np.asarray(jcipher.mul_plain_vec(jctx, jct, jnp.asarray(pt)).data))
+    with pytest.raises(ValueError):
+        tcipher.drop_limbs(tctx, tct, 0)

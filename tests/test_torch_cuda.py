@@ -11,7 +11,9 @@ import pytest
 import torch
 
 from repro_torch.core.ckks import cipher, encoding, params
+from repro_torch.core.secure_agg import ProtectedUpdate
 from repro_torch.kernels import he_agg, ntt, ops, pointwise, ref
+from repro_torch.wire import compress, stream
 
 pytestmark = pytest.mark.cuda
 
@@ -56,7 +58,8 @@ def test_kernels_match_plain_versions(cuda, n):
     for got, want in pairs:
         assert torch.equal(got, want)
     assert ops.launch_counts() == {"ntt_fwd": 1, "ntt_inv": 1, "mul_add": 1,
-                                   "weighted_sum": 1}
+                                   "weighted_sum": 1,
+                                   "weighted_accum_chunks": 0}
 
 
 def test_strided_operands_and_ciphertext_layout(cuda):
@@ -77,6 +80,36 @@ def test_strided_operands_and_ciphertext_layout(cuda):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(agg, agg_want)
+
+
+@pytest.mark.parametrize("k", [1, 7, 300])
+@pytest.mark.parametrize("limb_axis", [-2, -3])
+def test_weighted_accum_chunks_matches_plain_version(cuda, k, limb_axis):
+    """K not a power of two, both limb axes, rows weighted as if from
+    different clients; in place (out=acc) and not."""
+    ctx = params.make_test_context(n_poly=1024, n_limbs=3, delta_bits=20,
+                                   device=cuda)
+    t = ctx.device_tables
+    rng = np.random.RandomState(k)
+    rows = [_residues(rng, ctx, k, cuda) for _ in range(4)]   # [K, L, N]
+    stack = -2 if limb_axis == -3 else -3     # the (c0, c1) axis
+    acc = torch.stack(rows[:2], dim=stack)
+    cts = torch.stack(rows[2:], dim=stack)
+    w = torch.from_numpy(encoding.encode_weights_mont(
+        [0.2, 0.3, 0.5], ctx).view(np.int32).copy()).to(cuda)[
+            torch.arange(k, device=cuda) % 3].contiguous()
+    want = ref.he_weighted_accum_chunks_fused(acc, cts, w, t.qs, t.qinv_negs,
+                                              limb_axis)
+    ops.reset_launch_counts()
+    got = he_agg.he_weighted_accum_chunks_fused(acc, cts, w, t.qs,
+                                                t.qinv_negs, limb_axis)
+    inplace = acc.clone()
+    he_agg.he_weighted_accum_chunks_fused(inplace, cts, w, t.qs, t.qinv_negs,
+                                          limb_axis, out=inplace)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(inplace, want)
+    assert ops.launch_counts()["weighted_accum_chunks"] == 2
 
 
 def test_round_on_the_card_matches_the_cpu(cuda):
@@ -107,6 +140,54 @@ def test_round_on_the_card_matches_the_cpu(cuda):
                     cipher.decrypt_to_coeffs(ctx, sk, agg).cpu()])
     for got, want in zip(*out):
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_wire_round_on_the_card_matches_the_cpu(cuda, partitionable):
+    """`a` expansion, seeded encrypt, packing and StreamIngest (with a
+    rejected update and a checkpoint) give the same bits and bytes on the
+    card as on the CPU, in both threefry layouts."""
+    rng = np.random.RandomState(7)
+    n, b = 1024, 3
+    s_mont = rng.randint(0, 1 << 20, (2, n))
+    e = np.rint(3.2 * rng.randn(b, n))
+    vals = rng.randn(b, n // 2).astype(np.float32)
+    plain = rng.randn(500).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = params.make_test_context(
+            n_poly=n, n_limbs=2, device=dev,
+            threefry_partitionable=partitionable)
+        sk = {"s_mont": torch.from_numpy(s_mont.astype(np.int32)).to(dev)}
+        m = torch.from_numpy(encoding.encode_np(vals, ctx).view(np.int32))
+        ing = stream.StreamIngest(ctx)
+        res, blobs = [], []
+        for derive, codec in ((compress.DERIVE_FOLD_CHUNK, "f32"),
+                              (compress.DERIVE_CTR, "i8")):
+            res.append(cipher.expand_a_rows(ctx, 2 ** 40 + 3, 2 ** 31 - 2,
+                                            3, derive))
+            ct = cipher.encrypt_coeffs_seeded_from_samples(
+                ctx, sk, m.to(dev), torch.from_numpy(e).to(dev), 9 + derive,
+                derive=derive)
+            blobs.append(stream.pack_update_frames(
+                ProtectedUpdate(ct=ct, plain=torch.from_numpy(plain).to(dev)),
+                cid=derive, n_samples=1,
+                seeded=compress.seed_compress(ct, 9 + derive, derive),
+                plain_codec=codec))
+            ing.ingest(blobs[-1], 0.5)
+        with pytest.raises(stream.wf.WireError):
+            ing.ingest(blobs[0][:-10], 0.5)
+        arrays, meta = ing.export_state()
+        resumed = stream.StreamIngest(ctx)
+        resumed.restore_state(arrays, meta)
+        resumed.ingest(blobs[1], 0.25)
+        glob = resumed.finalize()
+        res += [glob.ct.data, glob.plain.view(torch.int32)]
+        out.append(([r.cpu() for r in res], blobs))
+    (got, got_blobs), (want, want_blobs) = out
+    assert got_blobs == want_blobs
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_wrappers_raise_on_what_they_do_not_take(cuda):

@@ -1,9 +1,10 @@
 """The port's kernels and their plain versions against the JAX package.
 
-For each of the four kernels of the Algorithm 1 round (ntt_fwd, ntt_inv,
-mul_add, weighted_sum) the port's plain PyTorch version must equal, bit for
-bit, both the JAX package's `ref` op and its Pallas kernel run in interpret
-mode, on the same numpy-seeded inputs at N in {256, 1024}, L=2.  The NTT
+For each kernel of the port (ntt_fwd, ntt_inv, mul_add, weighted_sum and
+the streaming flush weighted_accum_chunks) the port's plain PyTorch version
+must equal, bit for bit, both the JAX package's `ref` op and its Pallas
+kernel run in interpret mode, on the same numpy-seeded inputs at N in
+{256, 1024}, L=2.  The NTT
 gold vectors that do not depend on the JAX PRNG are reproduced too, and the
 CUDA kernels' arithmetic header is compiled with g++ and held against the
 JAX package's 16-bit-split Montgomery product.  The CUDA kernels themselves
@@ -167,6 +168,57 @@ def test_weighted_sum_in_ciphertext_layout(n):
     _assert_same(port, np.moveaxis(np.asarray(want), -2, -3))
 
 
+@pytest.mark.parametrize("n", NS)
+def test_weighted_accum_chunks_matches_jax(n):
+    """The flush acc[k] + w[k] (*) ct[k] with per-row weights over K=5 rows
+    (not a power of two) of [2, L, N]: the port's plain version equals the
+    JAX package's Pallas kernel (interpret), its ref, and folding the rows
+    one at a time with mul_add."""
+    jctx, tctx = _ctxs(n)
+    jt, tt = jctx.tables, tctx.device_tables
+    rng = np.random.RandomState(n + 7)
+    acc = jref.rand_limbed_np(rng, jctx, (5, 2))               # [K, 2, L, N]
+    cts = jref.rand_limbed_np(rng, jctx, (5, 2))
+    w = np.stack([rng.randint(0, q, 5) for q in jctx.primes],
+                 axis=1).astype(np.uint32)                     # [K, L]
+    port = ref.he_weighted_accum_chunks_fused(_t(acc), _t(cts), _t(w),
+                                              tt.qs, tt.qinv_negs)
+    _assert_same(
+        port,
+        _jref(jref.he_weighted_accum_chunks_fused, acc, cts, w, jt.qs,
+              jt.qinv_negs),
+        jhe_agg.he_weighted_accum_chunks_fused(acc, cts, w, jt.qs,
+                                               jt.qinv_negs, interpret=True))
+    rows = [ref.mul_add_fused(_t(cts[k]), _t(w[k])[:, None], _t(acc[k]),
+                              tt.qs, tt.qinv_negs) for k in range(5)]
+    assert torch.equal(torch.stack(rows), port)
+    assert torch.equal(ops.weighted_accum_chunks(_t(acc), _t(cts), _t(w),
+                                                 tctx), port)
+
+
+@pytest.mark.parametrize("n", NS)
+def test_weighted_accum_chunks_in_ciphertext_layout(n):
+    """limb_axis=-3 reads the ingest's [K, L, 2, N] rows in place, and
+    out=acc updates the accumulator in place; same bits as the JAX kernel
+    on the ops layout."""
+    jctx, tctx = _ctxs(n)
+    jt = jctx.tables
+    rng = np.random.RandomState(n + 8)
+    acc = jref.rand_limbed_np(rng, jctx, (3, 2))
+    cts = jref.rand_limbed_np(rng, jctx, (3, 2))
+    w = np.stack([rng.randint(0, q, 3) for q in jctx.primes],
+                 axis=1).astype(np.uint32)
+    want = jhe_agg.he_weighted_accum_chunks_fused(acc, cts, w, jt.qs,
+                                                  jt.qinv_negs,
+                                                  interpret=True)
+    tacc = _t(np.ascontiguousarray(np.moveaxis(acc, -2, -3)))
+    out = ops.weighted_accum_chunks(
+        tacc, _t(np.ascontiguousarray(np.moveaxis(cts, -2, -3))), _t(w),
+        tctx, limb_axis=-3, out=tacc)
+    assert out is tacc
+    _assert_same(tacc, np.moveaxis(np.asarray(want), -2, -3))
+
+
 @pytest.mark.parametrize("name", sorted(gold.KAT_CONTEXTS))
 def test_ntt_gold_vectors(name):
     """The NTT known-answer vectors (which no PRNG touches) bit for bit."""
@@ -193,12 +245,15 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.mul_add(ops.ntt_inv(ops.ntt_fwd(x, tctx), tctx), x, x, tctx)
     ops.weighted_sum(torch.stack([x, x]), torch.ones(2, 2, dtype=torch.int32),
                      tctx)
+    ops.weighted_accum_chunks(x, x, torch.ones(2, 2, dtype=torch.int32),
+                              tctx)
     assert ops.launch_counts() == {"ntt_fwd": 0, "ntt_inv": 0, "mul_add": 0,
-                                   "weighted_sum": 0}
+                                   "weighted_sum": 0,
+                                   "weighted_accum_chunks": 0}
 
 
 @pytest.mark.parametrize("op", ["ntt_fwd", "ntt_inv", "mul_add",
-                                "weighted_sum"])
+                                "weighted_sum", "weighted_accum_chunks"])
 def test_wrappers_refuse_tensors_neither_cpu_nor_cuda(op):
     """A non-CPU tensor goes to the kernel or raises; it never runs the
     plain version.  (`meta` stands in for a device without a kernel.)"""
@@ -213,6 +268,9 @@ def test_wrappers_refuse_tensors_neither_cpu_nor_cuda(op):
                               t.qinv_negs)
         elif op == "mul_add":
             pointwise.mul_add_fused(x, x, x, t.qs, t.qinv_negs)
+        elif op == "weighted_accum_chunks":
+            he_agg.he_weighted_accum_chunks_fused(x, x, x[:, :, 0], t.qs,
+                                                  t.qinv_negs)
         else:
             he_agg.he_weighted_sum_fused(x[None], x[0, :, :2], t.qs,
                                          t.qinv_negs)
