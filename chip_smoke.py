@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py [--seed S]
 
-Four phases; any failure exits non-zero, and without CUDA the script exits
+Five phases; any failure exits non-zero, and without CUDA the script exits
 non-zero before doing anything:
 
 1. build: nvcc builds every kernel under src/repro_torch/kernels/csrc/ for
    sm_90a (one nvcc per source, started together);
 2. kernels: each kernel's wrapper runs on the card at the main path's shapes
    and is held against its plain PyTorch version on the same inputs with
-   exact integer equality, timed with CUDA events.  A small round on the
+   exact integer equality, timed with CUDA events (mod_lift also beside
+   the one torch.remainder call that computes it).  A small round on the
    card is held bit for bit against the same draws on the CPU: keygen,
    public-key and seeded encrypt, `a` expansion for both derive ids,
-   weighted_sum, rescale, decrypt, and a StreamIngest of two small packed
-   blobs;
+   weighted_sum, rescale, decrypt, a StreamIngest of two small packed
+   blobs, and a transcipher provision, mask and ingest;
 3. in-memory round: the paper's Algorithm 1 round at full width --
    make_context() (N=8192, L=2, delta=2^26), keygen, three clients'
    Qwen1.5-0.5B-sized updates (463,987,712 float32 parameters, top 10%
@@ -24,14 +25,24 @@ non-zero before doing anything:
    quickstart's step 5) -- client_protect_seeded, seed_compress and
    pack_update_frames with an f16 plain segment, a BandwidthLedger of every
    blob, StreamIngest.ingest of each blob and finalize, a serialize_update
-   downlink, and client_recover_params from the parsed downlink.
+   downlink, and client_recover_params from the parsed downlink;
+5. transcipher round: the same clients, keys and mask through the thin-
+   client uplink (DESIGN.md §15) -- transcipher.provision per client
+   (DERIVE_CTR, a_seed 200+i), client_protect_transcipher (mask_values) and
+   pack_masked_update_frames with an f16 plain segment, one StreamIngest
+   with the server materials, finalize and client_recover_params.  Then,
+   outside the counted run: the aggregate must equal, bit for bit, the
+   weighted_sum of seeded encryptions of the same coefficients with the
+   same gaussian draws and a_seeds, and every escrow frame must decrypt to
+   its client's keystream seed.
 
-Phases 3 and 4 each run with the launch counters set to 0 just before and
+Phases 3, 4 and 5 each run with the launch counters set to 0 just before and
 read just after, under torch.profiler (device busy share, time by kernel).
 Each must recover the plaintext FedAvg within 1e-2 (the quickstart's
 bound) with exactly its expected launch counts; the wire round must also
 fold with one accumulate launch per client and hold at most one update's
-11,328 rows, with blob sizes equal to the frame layout's.
+11,328 rows, with blob sizes equal to the frame layout's; so must the
+transcipher round.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line with every kernel's numbers, and the JSON result line.
@@ -51,11 +62,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core.ckks import cipher, encoding, params  # noqa: E402
+from repro_torch import interop  # noqa: E402
+from repro_torch.core import packing  # noqa: E402
+from repro_torch.core.ckks import (  # noqa: E402
+    cipher, encoding, params, transcipher)
 from repro_torch.core.secure_agg import (  # noqa: E402
     AggregatorConfig, ProtectedUpdate, SelectiveHEAggregator)
 from repro_torch.kernels import (  # noqa: E402
-    build, he_agg, ntt, ops, pointwise, ref)
+    build, he_agg, lift, ntt, ops, pointwise, ref)
 from repro_torch.wire import budget, compress, format as wf  # noqa: E402
 from repro_torch.wire import stream  # noqa: E402
 
@@ -81,16 +95,24 @@ P_RATIO = 0.1
 # public-key encrypts (4 ntt_fwd, 2 mul_add each), weighted_sum and decrypt
 # (mul_add, ntt_inv); the wire round reuses the keys, runs three seeded
 # encrypts (2 ntt_fwd, 1 mul_add each), one accumulate launch per ingested
-# blob, and decrypt
+# blob, and decrypt; the transcipher round runs three provisions (D: one
+# mod_lift, ntt_fwd and mul_add; the escrow encrypt: 2 ntt_fwd, 1 mul_add),
+# no kernel on the clients, one mod_lift, ntt_fwd and accumulate launch per
+# ingested blob, and decrypt
 EXPECTED_LAUNCHES = {
     "in_memory": {"ntt_fwd": 14, "ntt_inv": 1, "mul_add": 7,
-                  "weighted_sum": 1, "weighted_accum_chunks": 0},
+                  "weighted_sum": 1, "weighted_accum_chunks": 0,
+                  "mod_lift": 0},
     "wire": {"ntt_fwd": 6, "ntt_inv": 1, "mul_add": 4, "weighted_sum": 0,
-             "weighted_accum_chunks": 3},
+             "weighted_accum_chunks": 3, "mod_lift": 0},
+    "transcipher": {"ntt_fwd": 12, "ntt_inv": 1, "mul_add": 7,
+                    "weighted_sum": 0, "weighted_accum_chunks": 3,
+                    "mod_lift": 6},
 }
 MAX_ERR = 1e-2
 PLAIN_CODEC = "f16"
 A_SEED0 = 100          # client i seeds its public `a` with A_SEED0 + i
+TC_A_SEED0 = 200       # ... and with TC_A_SEED0 + i in the transcipher round
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s; 67 TFLOP/s
 # float32 outside the tensor cores, the rate the integer multiplies are
@@ -112,6 +134,8 @@ KERNELS = {
                      "src/repro/kernels/he_agg.py:32"),
     "weighted_accum_chunks": ("src/repro_torch/kernels/csrc/he_agg.cu",
                               "src/repro/kernels/he_agg.py:162"),
+    "mod_lift": ("src/repro_torch/kernels/csrc/lift.cu",
+                 "src/repro/kernels/lift.py:27"),
 }
 
 
@@ -188,8 +212,17 @@ def check_kernels(ctx, gen, n_rows):
     w_rows = torch.from_numpy(encoding.encode_weights_mont(
         [0.2, 0.3, 0.5], ctx).view(np.int32).copy()).to(dev)[
             torch.arange(n_rows, device=dev) % N_CLIENTS].contiguous()
+    # the transcipher's masked words span the whole u32 range: random
+    # int32 bits with the edges 0, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1
+    words = torch.randint(-2 ** 31, 2 ** 31, (n_rows, n), generator=gen,
+                          device=dev, dtype=torch.int32)
+    words.view(-1)[:5] = torch.tensor([0, 2 ** 31 - 1, -2 ** 31, -2, -1],
+                                      dtype=torch.int32, device=dev)
+    words64 = words.to(torch.int64) & 0xFFFFFFFF    # widened beforehand
+    q64 = t.qs.to(torch.int64)[:, None]
     elems = x.numel()
     ntt_muls = MULS_PER_MONT * (n // 2) * log_n * (elems // n)
+    # name: (kernel, plain version, shape, bytes, operations, library call)
     cases = {
         "ntt_fwd": (
             lambda: ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs),
@@ -221,9 +254,15 @@ def check_kernels(ctx, gen, n_rows):
                 acc, cts[0], w_rows, t.qs, t.qinv_negs, limb_axis=-3),
             acc.shape, 4 * (3 * acc.numel() + w_rows.numel() + 2 * l),
             MULS_PER_MONT * acc.numel()),
+        # one remainder per output word; the bytes bound it
+        "mod_lift": (
+            lambda: lift.mod_lift_fused(words, t.qs),
+            lambda: ref.mod_lift_fused(words, t.qs),
+            words.shape, 4 * (words.numel() * (1 + l) + l), words.numel() * l,
+            lambda: torch.remainder(words64[:, None, :], q64)),
     }
     rows = {}
-    for name, (kern, plain, shape, nbytes, nops) in cases.items():
+    for name, (kern, plain, shape, nbytes, nops, *library) in cases.items():
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -235,6 +274,11 @@ def check_kernels(ctx, gen, n_rows):
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: kernel differs from its plain "
                                  f"version (max |diff| {err})")
+        library_ms = None
+        if library:
+            if not torch.equal(library[0]().to(torch.int32), want):
+                raise AssertionError(f"{name}: the library call differs")
+            library_ms = time_ms(library[0], 10)
         del got, want
         ms = time_ms(kern, 10)
         plain_ms = time_ms(plain, 2)
@@ -244,11 +288,12 @@ def check_kernels(ctx, gen, n_rows):
                       "replaces": replaces, "launches": None,
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": None}
+                      "library_ms": library_ms}
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"kernel {name}: exact at {tuple(shape)}  ms={ms:.4f}  "
             f"plain_ms={plain_ms:.4f}  bound_ms={bound_ms:.4f} ({bound_by}, "
-            f"{nbytes / 1e9:.3f} GB, {nops / 1e9:.3f} G int mul)  "
-            f"library call: none")
+            f"{nbytes / 1e9:.3f} GB, {nops / 1e9:.3f} G int ops)  "
+            f"library call: {lib}")
     log("kernels: " + ", ".join(rows))
     return rows
 
@@ -287,6 +332,30 @@ def small_round(c, draws, a, vals, plain):
     glob = ing.finalize()
     out["stream aggregate"] = glob.ct.data
     out["stream plain"] = glob.plain.view(torch.int32)
+    # the transcipher uplink: provisioned with e0 as the zero encryption's
+    # noise, its unmasked aggregate is the seeded encryption's with e0
+    cm, sm = transcipher.provision_from_samples(
+        c, sk, d["e0"], d["e1"][:1], 2 ** 64 - 3, 300,
+        derive=compress.DERIVE_CTR)
+    blobs.append(stream.pack_masked_update_frames(
+        compress.MaskedChunk(masked=transcipher.mask_values(c, cm, vals),
+                             a_seed=cm.a_seed, scale=cm.scale,
+                             derive=cm.derive),
+        compress.seed_compress(cm.seed_ct, cm.escrow_a_seed, cm.derive),
+        torch.from_numpy(plain).to(c.device), cid=9, n_samples=1,
+        plain_codec="f16"))
+    ing = stream.StreamIngest(c, transcipher_materials={(9, 0): sm})
+    ing.ingest(blobs[-1], 0.5)
+    sct = cipher.encrypt_coeffs_seeded_from_samples(
+        c, sk, m, d["e0"], a_seed=300, derive=compress.DERIVE_CTR)
+    want = cipher.weighted_sum(c, cipher.Ciphertext(sct.data[None],
+                                                    sct.scale), [0.5])
+    out["transcipher D"] = sm.d
+    out["escrow ciphertext"] = cm.seed_ct.data
+    out["transcipher aggregate"] = ing.finalize().ct.data
+    if not torch.equal(out["transcipher aggregate"], want.data):
+        raise AssertionError(f"small round on {c.device}: the transcipher "
+                             "aggregate differs from the seeded one")
     return {k: v.cpu() for k, v in out.items()}, blobs, sk
 
 
@@ -568,6 +637,152 @@ def wire_round(seed, st):
     return counts
 
 
+def masked_blob_bytes(n_rows, n_limbs, n_poly, n_plain):
+    """Bytes of one transcipher uplink blob with an f16 plain segment, from
+    the frame layout (DESIGN.md §6, §15): a CT_CHUNK is its u32 index plus
+    a masked-chunk frame (f64 scale, u64 a_seed, u32 offset, u8 derive, then
+    a 2-d u32 array [1, N]); the TRANSCIPHER_SEED frame nests a one-row v2
+    seeded frame of all L limbs."""
+    h = wf.HEADER_BYTES
+    chunk = h + 4 + h + 21 + (2 + 2 * 4) + 4 * n_poly
+    escrow = h + h + 21 + (2 + 3 * 4) + 4 * n_limbs * n_poly
+    return ((h + 17) + escrow + n_rows * chunk
+            + (h + 9 + 2 + 4 + 2 * n_plain) + h)
+
+
+def tc_generator(ctx, seed, i):
+    """Client i's provisioning generator; provision draws the zero
+    encryption's gaussian noise from it first."""
+    return torch.Generator(device=ctx.device).manual_seed(seed + 30 + i)
+
+
+def transcipher_round(seed, st):
+    """The round over the thin-client uplink, with the in-memory round's
+    keys and mask; returns its launch counts and what the checks after it
+    need."""
+    sync = torch.cuda.synchronize
+    ctx, sk, agg, model = st["ctx"], st["sk"], st["agg"], st["model"]
+    n_rows = st["n_rows"]
+    times = {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mats = []
+    for i in range(N_CLIENTS):
+        t = time.perf_counter()
+        mats.append(transcipher.provision(ctx, sk, tc_generator(ctx, seed, i),
+                                          TC_A_SEED0 + i, n_rows))
+        sync()
+        times[f"provision[{i}]"] = time.perf_counter() - t
+    blobs = []
+    for i, (cm, _) in enumerate(mats):
+        client = map_tree(lambda p: p + 0.1 * i, model)
+        t = time.perf_counter()
+        masked, plain = agg.client_protect_transcipher(
+            client, cm, torch.Generator(device=ctx.device).manual_seed(
+                seed + 40 + i))
+        sync()
+        times[f"client_protect_transcipher[{i}]"] = time.perf_counter() - t
+        del client
+        t = time.perf_counter()
+        blobs.append(stream.pack_masked_update_frames(
+            compress.MaskedChunk(masked=masked, a_seed=cm.a_seed,
+                                 scale=cm.scale, chunk_offset=cm.chunk_offset,
+                                 derive=cm.derive),
+            compress.seed_compress(cm.seed_ct, cm.escrow_a_seed, cm.derive),
+            plain, cid=i, n_samples=1, rnd=0, plain_codec=PLAIN_CODEC))
+        times[f"pack_masked_update_frames[{i}]"] = time.perf_counter() - t
+        del masked, plain
+
+    ingest = stream.StreamIngest(ctx, transcipher_materials={
+        (i, 0): sm for i, (_, sm) in enumerate(mats)})
+    for i, blob in enumerate(blobs):
+        t = time.perf_counter()
+        ingest.ingest(blob, 1 / N_CLIENTS)
+        sync()
+        times[f"StreamIngest.ingest[{i}]"] = time.perf_counter() - t
+    t = time.perf_counter()
+    glob = ingest.finalize()
+    sync()
+    times["finalize"] = time.perf_counter() - t
+    t = time.perf_counter()
+    recovered = agg.client_recover_params(glob, sk)
+    sync()
+    times["client_recover_params"] = time.perf_counter() - t
+    counts = ops.launch_counts()
+    report_times("transcipher", times, t0)
+
+    up_sizes = [len(b) for b in blobs]
+    want_up = masked_blob_bytes(n_rows, ctx.n_limbs, ctx.n_poly,
+                                agg.part.n_plain)
+    seeded_up = uplink_blob_bytes(n_rows, ctx.n_limbs, ctx.n_poly,
+                                  agg.part.n_plain)
+    log(f"transcipher bytes: uplink blobs {up_sizes} (frame layout "
+        f"{want_up} each; the seeded uplink's {seeded_up}, ratio "
+        f"{want_up / seeded_up:.4f})")
+    log(f"transcipher ingest: accum_launches={ingest.accum_launches} "
+        f"clients_ingested={ingest.clients_ingested} "
+        f"peak_chunk_buffers={ingest.peak_chunk_buffers} "
+        f"bytes_ingested={ingest.bytes_ingested}")
+    if up_sizes != [want_up] * N_CLIENTS:
+        raise AssertionError("transcipher blob sizes differ from the frame "
+                             "layout")
+    if not ingest.accum_launches == N_CLIENTS == ingest.clients_ingested:
+        raise AssertionError("transcipher: not one accumulate launch per "
+                             "client")
+    if ingest.peak_chunk_buffers != n_rows:
+        raise AssertionError(f"transcipher: peak_chunk_buffers "
+                             f"{ingest.peak_chunk_buffers} != {n_rows}")
+    check_recovered("transcipher", recovered, st["expect"])
+    check_launches("transcipher", counts)
+    return counts, {"aggregate": glob.ct.data, "escrow": ingest.escrow_seeds,
+                    "seeds": [cm.keystream_seed for cm, _ in mats]}
+
+
+def check_transcipher_reference(seed, st, out):
+    """The transcipher aggregate against the weighted_sum of seeded
+    encryptions of the same coefficients, with the same gaussian draws and
+    a_seeds (bit for bit), and each stored escrow frame against its
+    client's keystream seed."""
+    ctx, sk, agg, model = st["ctx"], st["sk"], st["agg"], st["model"]
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    cts = []
+    for i in range(N_CLIENTS):
+        e = cipher.sample_gaussian(tc_generator(ctx, seed, i),
+                                   (st["n_rows"], ctx.n_poly), ctx.device,
+                                   ctx.error_sigma)
+        vec, _ = packing.flatten_params(map_tree(lambda p: p + 0.1 * i,
+                                                 model))
+        enc_vals, _ = packing.split_by_mask(vec, agg.part)
+        del vec
+        m = interop.residues_from_np(
+            encoding.encode_np(enc_vals.cpu().numpy(), ctx), ctx.device)
+        cts.append(cipher.encrypt_coeffs_seeded_from_samples(
+            ctx, sk, m, e, TC_A_SEED0 + i, derive=compress.DERIVE_CTR).data)
+        del e, m, enc_vals
+    stacked = cipher.Ciphertext(torch.stack(cts), ctx.delta)
+    del cts
+    want = cipher.weighted_sum(ctx, stacked, [1 / N_CLIENTS] * N_CLIENTS)
+    del stacked
+    if not torch.equal(out["aggregate"], want.data):
+        raise AssertionError("transcipher aggregate differs from the seeded "
+                             "weighted_sum reference")
+    del want
+    for i, ks in enumerate(out["seeds"]):
+        ct = out["escrow"][(i, 0)].expand(ctx)
+        dig = cipher.decrypt_values_np(ctx, sk, ct).ravel()[:4]
+        got = sum(int(round(float(v))) << (16 * j) for j, v in enumerate(dig))
+        if got != ks:
+            raise AssertionError(f"escrow frame of client {i} decrypts to "
+                                 f"{got}, not its keystream seed {ks}")
+    log(f"transcipher reference: aggregate == weighted_sum of {N_CLIENTS} "
+        f"seeded encryptions bit for bit (launches "
+        f"{json.dumps(ops.launch_counts())}); {N_CLIENTS} escrow frames "
+        f"decrypt to their keystream seeds; "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -601,7 +816,11 @@ def main():
         by_path["in_memory"], state = in_memory_round(args.seed)
     with traced("wire"):
         by_path["wire"] = wire_round(args.seed, state)
-    del state
+    torch.cuda.empty_cache()
+    with traced("transcipher"):
+        by_path["transcipher"], tc_out = transcipher_round(args.seed, state)
+    check_transcipher_reference(args.seed, state, tc_out)
+    del state, tc_out
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}

@@ -47,6 +47,18 @@ def prng_key(seed: int, device="cpu") -> torch.Tensor:
     return torch.tensor([0, seed & M32], dtype=torch.int64, device=device)
 
 
+def raw_key(seed: int, device="cpu") -> torch.Tensor:
+    """A full u64 seed as the raw key words [seed >> 32, seed & 0xFFFFFFFF]
+    (the JAX package's transcipher `_pad_base_key`).  Unlike `prng_key` it
+    keeps the high word and takes every seed in [0, 2**64): transcipher
+    keystream seeds are uniform over 64 bits."""
+    seed = int(seed)
+    if not 0 <= seed < (1 << 64):
+        raise ValueError(f"raw key seed {seed} is not a u64")
+    return torch.tensor([seed >> 32, seed & M32], dtype=torch.int64,
+                        device=device)
+
+
 def threefry2x32(k1, k2, x1, x2):
     """The Threefry-2x32 block function (20 rounds) on broadcastable int64
     tensors of u32 words.  Returns the two output words."""

@@ -15,10 +15,12 @@ Data flow per round (single-key setup):
 Over the wire (repro_torch.wire) the client encrypts with the seeded
 secret-key path instead (`client_protect_seeded`): c1 is regenerated from a
 public seed, so the client ships (seed, c0), and the server folds the
-arriving chunks with `wire.StreamIngest`.
+arriving chunks with `wire.StreamIngest`.  A thin client masks its update
+with a provisioned keystream instead (`client_protect_transcipher`,
+core/ckks/transcipher.py), and the server's StreamIngest unmasks it.
 
-Everything runs on the context's device.  The transcipher and sharded paths
-of the JAX package are not ported yet.
+Everything runs on the context's device.  The sharded path of the JAX
+package is not ported yet.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dp, packing, selection
-from repro_torch.core.ckks import cipher, encoding
+from repro_torch.core.ckks import cipher, encoding, transcipher
 from repro_torch.core.ckks.cipher import Ciphertext
 from repro_torch.core.ckks.params import CkksContext
 from repro_torch.core.packing import FlatSpec, MaskPartition
@@ -110,6 +112,25 @@ class SelectiveHEAggregator:
         if self.cfg.dp_b > 0:
             plain = dp.laplace_noise_vec(plain, gen, self.cfg.dp_b)
         return ProtectedUpdate(ct=ct, plain=plain)
+
+    def client_protect_transcipher(self, params,
+                                   cm: transcipher.ClientMaterials,
+                                   gen: torch.Generator):
+        """Thin-client protect: mask the encrypted partition with the
+        provisioned keystream, no NTT and no RNS arithmetic on the client.
+
+        Returns (masked u32[n_chunks, N] numpy, plain float32 tensor); the
+        wire layer frames them with the escrow ciphertext of `cm`
+        (wire.stream.pack_masked_update_frames).  `gen` draws the optional
+        Laplace noise on the plaintext part."""
+        vec, _ = packing.flatten_params(params)
+        enc_vals, plain = packing.split_by_mask(
+            vec.to(self.ctx.device), self.part)
+        del vec
+        masked = transcipher.mask_values(self.ctx, cm, enc_vals)
+        if self.cfg.dp_b > 0:
+            plain = dp.laplace_noise_vec(plain, gen, self.cfg.dp_b)
+        return masked, plain
 
     def client_recover(self, agg: ProtectedUpdate, sk: dict):
         """Decrypt + merge -> flat global vector."""

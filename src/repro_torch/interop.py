@@ -4,8 +4,10 @@ The JAX package holds residues as u32 arrays; the port holds them as int32
 tensors with the same bits.  These functions take and give numpy arrays
 (`np.asarray` of JAX outputs), so this module imports no JAX: keys,
 ciphertexts, protected and seeded updates and context primes cross over
-unchanged.  A `StreamIngest` checkpoint needs no converter: its
-`export_state` arrays have the JAX package's layout in both packages.
+unchanged, and so do a JAX `transcipher.provision`'s materials, so the port
+ingests masked blobs of a JAX-provisioned client.  A `StreamIngest`
+checkpoint needs no converter: its `export_state` arrays have the JAX
+package's layout in both packages.
 """
 from __future__ import annotations
 
@@ -14,7 +16,6 @@ import torch
 
 from repro_torch.core.ckks.cipher import DERIVE_FOLD_CHUNK, Ciphertext
 from repro_torch.core.ckks.params import CkksContext
-from repro_torch.core.secure_agg import ProtectedUpdate
 
 
 def residues_from_np(arr, device) -> torch.Tensor:
@@ -59,10 +60,11 @@ def ciphertext_to_np(ct: Ciphertext) -> tuple[np.ndarray, float]:
     return residues_to_np(ct.data), float(ct.scale)
 
 
-def protected_update_from_np(data, scale: float, plain,
-                             device) -> ProtectedUpdate:
+def protected_update_from_np(data, scale: float, plain, device):
     """A JAX `ProtectedUpdate`'s ct (u32 data, scale) and float32 plain ->
     the port's ProtectedUpdate on `device`."""
+    # imported here: secure_agg imports transcipher, which imports this
+    from repro_torch.core.secure_agg import ProtectedUpdate
     return ProtectedUpdate(
         ct=ciphertext_from_np(data, scale, device),
         plain=torch.from_numpy(np.asarray(plain, dtype=np.float32).copy())
@@ -86,6 +88,32 @@ def seeded_from_np(c0, seed: int, scale: float, device,
                             scale=float(scale),
                             chunk_offset=int(chunk_offset),
                             derive=int(derive))
+
+
+def server_materials_from_np(d, device, *, a_seed: int, chunk_offset: int,
+                             n_chunks: int, derive: int, scale: float):
+    """A JAX `transcipher.ServerMaterials` (D as u32 [B, L, N], then its
+    scalar fields) -> the port's, with D an int32 tensor on `device`."""
+    from repro_torch.core.ckks.transcipher import ServerMaterials
+    return ServerMaterials(d=residues_from_np(d, device), a_seed=int(a_seed),
+                           chunk_offset=int(chunk_offset),
+                           n_chunks=int(n_chunks), derive=int(derive),
+                           scale=float(scale))
+
+
+def client_materials_from_np(seed_ct_data, seed_ct_scale: float, device, *,
+                             keystream_seed: int, a_seed: int,
+                             chunk_offset: int, n_chunks: int, derive: int,
+                             scale: float, escrow_a_seed: int):
+    """A JAX `transcipher.ClientMaterials` (its escrow `seed_ct` as u32 data
+    and scale, then its scalar fields) -> the port's."""
+    from repro_torch.core.ckks.transcipher import ClientMaterials
+    return ClientMaterials(
+        keystream_seed=int(keystream_seed), a_seed=int(a_seed),
+        chunk_offset=int(chunk_offset), n_chunks=int(n_chunks),
+        derive=int(derive), scale=float(scale),
+        seed_ct=ciphertext_from_np(seed_ct_data, seed_ct_scale, device),
+        escrow_a_seed=int(escrow_a_seed))
 
 
 def check_context(ctx: CkksContext, primes, n_poly: int | None = None,

@@ -24,7 +24,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("ntt", "pointwise", "he_agg")
+SOURCES = ("ntt", "pointwise", "he_agg", "lift")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,6 +45,9 @@ SIGNATURES = {
         "weighted_sum_launch": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
         "weighted_accum_chunks_launch": (_P, _P, _P, _P, _P, _P, _LL, _I, _I,
                                          _I, _P),
+    },
+    "lift": {
+        "mod_lift_launch": (_P, _P, _P, _LL, _I, _I, _P),
     },
 }
 

@@ -6,9 +6,10 @@ tensor in one call.  Per-limb constants come from the context's device
 tables (`CkksContext.device_tables`), sliced to the input's limb count, so
 limb-dropped ciphertexts work unchanged.
 
-The five ops with a kernel (`ntt_fwd`, `ntt_inv`, `mul_add`,
-`weighted_sum`, `weighted_accum_chunks`) go to their wrappers, which launch the CUDA kernel for a
-CUDA tensor and run the plain version for a CPU tensor: the device decides,
+The six ops with a kernel (`ntt_fwd`, `ntt_inv`, `mul_add`,
+`weighted_sum`, `weighted_accum_chunks`, `mod_lift`) go to their wrappers,
+which launch the CUDA kernel for a CUDA tensor and run the plain version
+for a CPU tensor: the device decides,
 there is no backend switch.  The limb-wise helpers (`mod_add`, `mod_sub`,
 `mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of their own
 and are plain torch ops.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import he_agg as _he_agg
+from repro_torch.kernels import lift as _lift
 from repro_torch.kernels import ntt as _ntt
 from repro_torch.kernels import pointwise as _pointwise
 from repro_torch.kernels import ref as _ref
@@ -29,6 +31,7 @@ KERNELS = {
     "mul_add": _pointwise.mul_add_fused,
     "weighted_sum": _he_agg.he_weighted_sum_fused,
     "weighted_accum_chunks": _he_agg.he_weighted_accum_chunks_fused,
+    "mod_lift": _lift.mod_lift_fused,
 }
 
 
@@ -103,6 +106,14 @@ def weighted_accum_chunks(acc, cts, w_mont, ctx, limb_axis: int = -2,
     return _he_agg.he_weighted_accum_chunks_fused(
         acc, cts, w_mont[:, :l].contiguous(), t.qs, t.qinv_negs, limb_axis,
         out=out)
+
+
+def mod_lift(x, n_limbs, ctx):
+    """Per-limb lift of full-range words: int32[..., N] (u32 bits, no limb
+    axis: transcipher-masked coefficients or keystream pads) ->
+    int32[..., L, N] with out[..., l, :] = x mod q_l, L = n_limbs, in one
+    launch.  Feeds ntt_fwd in the transcipher unmask."""
+    return _lift.mod_lift_fused(x, _tables(ctx, n_limbs).qs)
 
 
 # ---------------------------------------------------------------------------

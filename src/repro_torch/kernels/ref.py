@@ -165,3 +165,15 @@ def he_weighted_accum_chunks_fused(acc, cts, w_mont, qs, qinv_negs,
     return mod_add(acc, mont_mul(cts, wb, qs.reshape(lshape),
                                  qinv_negs.reshape(lshape)),
                    qs.reshape(lshape))
+
+
+def mod_lift_fused(x, qs):
+    """Per-limb lift of full-range words: out[..., l, :] = x[..., :] mod q_l.
+
+    x: int32[..., N] holding the u32 bits of full-range words (transcipher
+    masked coefficients span [1, 2**32 - 2], keystream pads [2**30,
+    3 * 2**30)); qs: int32[L].  The words are widened to their u32 values
+    before the remainder: `%` of the signed view floors, and would give
+    wrong residues for every word >= 2**31."""
+    return (_u32(x)[..., None, :] % qs.to(torch.int64)[:, None]).to(
+        torch.int32)

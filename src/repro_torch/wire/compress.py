@@ -94,8 +94,8 @@ class SeededCiphertext:
 @dataclasses.dataclass
 class MaskedChunk:
     """Wire form of a transcipher (hybrid-HE) uplink chunk: stream-cipher-
-    masked centered coefficients u32[B, N], no ciphertext limbs.  The port
-    frames and parses it; ingesting it is the transcipher slice's work."""
+    masked centered coefficients u32[B, N], no ciphertext limbs
+    (core/ckks/transcipher.py); StreamIngest unmasks it."""
 
     masked: Any
     a_seed: int

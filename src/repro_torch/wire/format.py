@@ -294,7 +294,7 @@ def _parse_seeded_ciphertext(payload, version: int = 1) -> SeededCiphertext:
 
 
 # ---------------------------------------------------------------------------
-# transcipher uplink frames (pure bytes here; ingest is not ported yet)
+# transcipher uplink frames (wire/stream.py ingests them)
 # ---------------------------------------------------------------------------
 
 

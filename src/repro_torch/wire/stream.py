@@ -9,6 +9,10 @@ Client side, `pack_update_frames()` emits per update:
     PLAIN_SEGMENT  (quantized plaintext partition)
     UPDATE_END
 
+and a transcipher thin client's `pack_masked_update_frames()` the same with
+ct_kind CT_TRANSCIPHER, one escrow TRANSCIPHER_SEED frame after the header,
+and a masked-chunk frame in each CT_CHUNK (DESIGN.md §15).
+
 Server side, `StreamIngest.ingest()` parses and validates one update's
 frames, buffers its chunks, and folds them in ONE launch of the
 `weighted_accum_chunks` kernel:
@@ -27,6 +31,10 @@ On the card, the flush does in batches what the reference does per chunk:
     and expands every row's public `a` in batched threefry calls grouped by
     (seed, derive), with each row's own chunk id.  A row's `a` depends only
     on its own key, so no bit changes;
+  * a buffered masked chunk keeps its u32 row on the host; the flush copies
+    each (cid, round)'s masked rows to the device once and unmasks them all
+    with one `mod_lift`, one `ntt_fwd`, the gathered D rows and one batched
+    `a` expansion, where the reference unmasks chunk by chunk;
   * the accumulator is one dense int32 tensor [n_chunks, L, 2, N] in the
     ciphertext layout, updated in place by the kernel; `finalize` copies it
     out without a stack;
@@ -36,9 +44,10 @@ On the card, the flush does in batches what the reference does per chunk:
 
 Everything a rejected update could break is validated inside ingest's
 rollback scope (frame kinds, scale, dtype, shape, derive id, seed and chunk
-offset ranges), before the flush.  Not ported yet: transcipher updates
-(rejected with WireError), the `sharded=` engine, and telemetry (the
-counters are plain integer attributes).
+offset ranges, transcipher materials and their provisioned rows), before
+the flush, and a rejected update restores every escrow seed it touched.
+Not ported yet: the `sharded=` engine, and telemetry (the counters are
+plain integer attributes).
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch import interop
-from repro_torch.core.ckks import cipher, encoding, threefry
+from repro_torch.core.ckks import cipher, encoding, threefry, transcipher
 from repro_torch.core.ckks.cipher import Ciphertext
 from repro_torch.core.ckks.params import CkksContext
 from repro_torch.core.secure_agg import ProtectedUpdate
@@ -64,6 +73,10 @@ CT_FULL = 0
 CT_SEEDED = 1
 CT_TRANSCIPHER = 2
 _CT_KINDS = (CT_FULL, CT_SEEDED, CT_TRANSCIPHER)
+
+# escrow-rollback sentinel: this (cid, round) had no escrow seed before the
+# update under ingest set one
+_ESCROW_MISSING = object()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +132,42 @@ def pack_update_frames(upd: ProtectedUpdate, *, cid: int, n_samples: int,
     return b"".join(out)
 
 
+def pack_masked_update_frames(masked: _c.MaskedChunk,
+                              seed_ct: _c.SeededCiphertext, plain, *,
+                              cid: int, n_samples: int, rnd: int = 0,
+                              plain_codec: str = "f32",
+                              version: int | None = None) -> bytes:
+    """One transcipher client's masked update -> concatenated wire frames:
+    UPDATE_BEGIN (ct_kind CT_TRANSCIPHER) + the escrow TRANSCIPHER_SEED
+    frame + one masked chunk per row nested in CT_CHUNK + PLAIN_SEGMENT +
+    UPDATE_END.  Transcipher frames are v2+ only: version=1 raises the
+    serializer's WireError.
+
+    `masked` holds the whole update's masked u32[n_chunks, N] words with
+    the a_seed, derive, scale and chunk offset the unmask needs; `seed_ct`
+    is compress.seed_compress of ClientMaterials.seed_ct."""
+    n_chunks = masked.n_chunks
+    host = interop.residues_to_np(masked.masked)
+    out = [wf.frame(wf.T_UPDATE_BEGIN,
+                    _BEGIN.pack(cid, n_samples, rnd, n_chunks,
+                                CT_TRANSCIPHER),
+                    version=version),
+           wf.serialize_transcipher_seed(seed_ct, version=version)]
+    for b in range(n_chunks):
+        chunk = _c.MaskedChunk(masked=host[b:b + 1], a_seed=masked.a_seed,
+                               scale=masked.scale,
+                               chunk_offset=masked.chunk_offset + b,
+                               derive=masked.derive)
+        inner = wf.serialize_masked_chunk(chunk, version=version)
+        out.append(wf.frame(wf.T_CT_CHUNK, struct.pack("<I", b) + inner,
+                            version=version))
+    arr, qscale = _c.quantize_plain(plain, plain_codec)
+    out.append(wf.serialize_plain_segment(arr, plain_codec, qscale,
+                                          version=version))
+    out.append(wf.frame(wf.T_UPDATE_END, b"", version=version))
+    return b"".join(out)
+
+
 def peek_update_meta(blob: bytes) -> UpdateMeta:
     """Read only the UPDATE_BEGIN header (e.g. to compute FedAvg weights
     before ingesting)."""
@@ -141,19 +190,23 @@ def peek_update_meta(blob: bytes) -> UpdateMeta:
 
 @dataclasses.dataclass
 class _Ready:
-    """One buffered ciphertext row waiting for the next flush.
+    """One buffered ciphertext row waiting for the next flush, by kind:
 
-    data is a u32 numpy row [L, 2, N] (full chunk), a u32 numpy c0 row
-    [L, N] (seeded chunk: seed/derive/a_row name its `a`), or a device
-    int32 row [L, 2, N] (in-memory ingest)."""
+      "full"    data is a u32 numpy row [L, 2, N];
+      "seeded"  data is a u32 numpy c0 row [L, N]; seed, derive and a_row
+                (its global chunk id) name its `a`;
+      "masked"  data is a u32 numpy row [N] of masked words; materials
+                unmask it, a_row is its global chunk id;
+      "device"  data is a device int32 row [L, 2, N] (in-memory ingest)."""
 
     chunk_idx: int
     w_mont: np.ndarray                 # int32[L] Montgomery weight
     data: Any
-    seeded: bool = False
+    kind: str = "full"
     seed: int = 0
     derive: int = cipher.DERIVE_FOLD_CHUNK
     a_row: int = 0
+    materials: Any = None              # transcipher.ServerMaterials
 
 
 class StreamIngest:
@@ -165,14 +218,22 @@ class StreamIngest:
             ingest.ingest(blob, weight=w)
         agg = ingest.finalize()    # ProtectedUpdate, scale = in_scale*delta
 
+    `transcipher_materials` is a {(cid, round): transcipher.ServerMaterials}
+    registry (more via `add_transcipher_materials`); a masked update from
+    an unprovisioned (cid, round) is rejected.  `escrow_seeds` keeps each
+    accepted update's escrow keystream-seed ciphertext under (cid, round).
+
     Attributes (plain integers):
         accum_launches: accumulate launches (one per flush with ready rows).
         peak_chunk_buffers: most decoded-but-unfolded rows ever resident.
         clients_ingested, bytes_ingested, rejected_updates: ingest counts.
     """
 
-    def __init__(self, ctx: CkksContext):
+    def __init__(self, ctx: CkksContext,
+                 transcipher_materials: dict | None = None):
         self.ctx = ctx
+        self._transcipher = dict(transcipher_materials or {})
+        self.escrow_seeds: dict = {}
         self._acc = None             # int32[n_rows, L, 2, N], dense
         self._acc_plain = None       # float32[n_plain] on ctx.device
         self._rows: set[int] = set()  # chunk indices folded so far
@@ -185,6 +246,12 @@ class StreamIngest:
         self.bytes_ingested = 0
         self.peak_chunk_buffers = 0
         self.rejected_updates = 0
+
+    def add_transcipher_materials(self, cid: int, rnd: int,
+                                  materials) -> None:
+        """Register one (cid, round)'s transcipher.ServerMaterials before
+        its masked update arrives."""
+        self._transcipher[(int(cid), int(rnd))] = materials
 
     # -- internals ----------------------------------------------------------
 
@@ -217,9 +284,47 @@ class StreamIngest:
                 f"ciphertext chunk shape {shape} does not match this "
                 f"aggregation's {want}")
 
-    def _buffer_wire_chunk(self, chunk_idx: int, inner, w_mont) -> None:
+    def _masked_row(self, meta: UpdateMeta, mc: _c.MaskedChunk,
+                    chunk_idx: int, w_mont) -> _Ready:
+        """Validate one masked chunk against its (cid, round)'s materials.
+        Everything the flush's unmask could fail on is checked here."""
+        sm = self._transcipher.get((meta.cid, meta.round))
+        if sm is None:
+            raise wf.WireError(
+                f"no transcipher materials provisioned for client "
+                f"{meta.cid} round {meta.round}; register ServerMaterials "
+                f"(transcipher.provision) before ingest (DESIGN.md §15)")
+        if int(mc.a_seed) != int(sm.a_seed) \
+                or int(mc.derive) != int(sm.derive):
+            raise wf.WireError(
+                f"masked chunk parameters (a_seed={mc.a_seed}, "
+                f"derive={mc.derive}) do not match the provisioned "
+                f"materials (a_seed={sm.a_seed}, derive={sm.derive}) for "
+                f"client {meta.cid} round {meta.round}")
+        words = mc.masked
+        b, start = int(words.shape[0]), int(mc.chunk_offset)
+        r0 = start - sm.chunk_offset
+        if r0 < 0 or r0 + b > sm.n_chunks:
+            raise wf.WireError(
+                f"transcipher unmask failed: chunk rows [{start}, "
+                f"{start + b}) fall outside the provisioned range "
+                f"[{sm.chunk_offset}, {sm.chunk_offset + sm.n_chunks})")
+        l, n = int(sm.d.shape[-2]), int(sm.d.shape[-1])
+        if words.shape[1] != n:
+            raise wf.WireError(f"masked chunk rows of N={words.shape[1]} do "
+                               f"not match the provisioned N={n}")
+        threefry.prng_key(sm.a_seed)
+        cipher.check_chunk_start(start, sm.derive)
+        self._check_row(sm.scale, words.dtype, (b, l, 2, n))
+        return _Ready(int(chunk_idx), w_mont, words[0], kind="masked",
+                      a_row=start, materials=sm)
+
+    def _buffer_wire_chunk(self, meta: UpdateMeta, chunk_idx: int, inner,
+                           w_mont) -> None:
         """Validate and queue one parsed CT_CHUNK payload."""
-        if isinstance(inner, _c.SeededCiphertext):
+        if isinstance(inner, _c.MaskedChunk):
+            row = self._masked_row(meta, inner, chunk_idx, w_mont)
+        elif isinstance(inner, _c.SeededCiphertext):
             c0 = inner.c0
             l, n = self.ctx.n_limbs, self.ctx.n_poly
             if c0.ndim != 3 or c0.shape[1:] != (l, n):
@@ -231,7 +336,7 @@ class StreamIngest:
             threefry.prng_key(inner.seed)
             cipher.check_chunk_start(inner.chunk_offset, inner.derive)
             self._check_row(inner.scale, c0.dtype, (c0.shape[0], l, 2, n))
-            row = _Ready(int(chunk_idx), w_mont, c0[0], seeded=True,
+            row = _Ready(int(chunk_idx), w_mont, c0[0], kind="seeded",
                          seed=int(inner.seed), derive=int(inner.derive),
                          a_row=int(inner.chunk_offset))
         else:
@@ -243,8 +348,10 @@ class StreamIngest:
 
     def _rows_to_device(self, batch: list[_Ready]) -> torch.Tensor:
         """The batch's ciphertext rows as int32[K, L, 2, N] on the device:
-        one host-to-device copy per kind of row, and every seeded row's
-        `a` expanded in one call per (seed, derive)."""
+        one host-to-device copy per kind of row (per (cid, round) for
+        masked rows), every seeded row's `a` expanded in one call per
+        (seed, derive), and every (cid, round)'s masked rows unmasked in
+        one call."""
         dev = self.ctx.device
         k = len(batch)
         l, n = self._shape
@@ -254,30 +361,43 @@ class StreamIngest:
             return (slice(None) if len(js) == k
                     else torch.tensor(js, dtype=torch.int64, device=dev))
 
-        host_full = [j for j, r in enumerate(batch)
-                     if not r.seeded and isinstance(r.data, np.ndarray)]
-        on_dev = [j for j, r in enumerate(batch)
-                  if isinstance(r.data, torch.Tensor)]
-        seeded = [j for j, r in enumerate(batch) if r.seeded]
-        if host_full:
-            rows = np.stack([batch[j].data for j in host_full])
-            cts[sel(host_full)] = torch.from_numpy(rows.view(np.int32)).to(
-                dev)
-        if on_dev:
-            cts[sel(on_dev)] = torch.stack([batch[j].data for j in on_dev])
-        if seeded:
-            rows = np.stack([batch[j].data for j in seeded])
-            cts[sel(seeded), :, 0, :] = torch.from_numpy(
-                rows.view(np.int32)).to(dev)
+        def host_rows(js):   # one copy of the rows' u32 host data
+            rows = np.stack([batch[j].data for j in js])
+            return torch.from_numpy(rows.view(np.int32)).to(dev)
+
+        def ids(js):
+            return torch.tensor([batch[j].a_row for j in js],
+                                dtype=torch.int64)
+
+        by_kind: dict[str, list[int]] = {}
+        for j, r in enumerate(batch):
+            by_kind.setdefault(r.kind, []).append(j)
+        if "full" in by_kind:
+            cts[sel(by_kind["full"])] = host_rows(by_kind["full"])
+        if "device" in by_kind:
+            cts[sel(by_kind["device"])] = torch.stack(
+                [batch[j].data for j in by_kind["device"]])
+        if "seeded" in by_kind:
+            js = by_kind["seeded"]
+            cts[sel(js), :, 0, :] = host_rows(js)
             groups: dict[tuple[int, int], list[int]] = {}
-            for j in seeded:
+            for j in js:
                 groups.setdefault((batch[j].seed, batch[j].derive),
                                   []).append(j)
-            for (seed, derive), js in groups.items():
-                ids = torch.tensor([batch[j].a_row for j in js],
-                                   dtype=torch.int64)
-                cts[sel(js), :, 1, :] = cipher.expand_a_for_ids(
-                    self.ctx, seed, ids, derive)
+            for (seed, derive), gjs in groups.items():
+                cts[sel(gjs), :, 1, :] = cipher.expand_a_for_ids(
+                    self.ctx, seed, ids(gjs), derive)
+        mgroups: dict[int, list[int]] = {}
+        for j in by_kind.get("masked", ()):
+            mgroups.setdefault(id(batch[j].materials), []).append(j)
+        for gjs in mgroups.values():
+            sm = batch[gjs[0]].materials
+            g_ids = ids(gjs)
+            d_rows = (g_ids - sm.chunk_offset).to(dev)
+            cts[sel(gjs), :, 0, :] = transcipher.unmask_c0(
+                self.ctx, sm, host_rows(gjs), d_rows)
+            cts[sel(gjs), :, 1, :] = cipher.expand_a_for_ids(
+                self.ctx, sm.a_seed, g_ids, sm.derive)
         return cts
 
     def _fold(self, batch: list[_Ready]) -> None:
@@ -363,6 +483,8 @@ class StreamIngest:
         chunks_seen: set[int] = set()
         plain_segments = []            # folded only after validation
         n_buffered = 0
+        escrow_prev: dict = {}         # escrow keys this update set ->
+                                       # prior value (or _ESCROW_MISSING)
         prev_in_scale = self._in_scale
         prev_shape = self._shape
         try:
@@ -374,13 +496,9 @@ class StreamIngest:
                         raise wf.WireError(
                             f"unknown ct_kind {kind} in UPDATE_BEGIN; this "
                             f"build implements {_CT_KINDS}")
-                    if kind == CT_TRANSCIPHER:
-                        raise wf.WireError(
-                            "transcipher updates (ct_kind "
-                            f"{CT_TRANSCIPHER}) cannot be ingested: "
-                            "transcipher ingest is not ported yet")
                     meta = UpdateMeta(cid, n_samples, rnd, n_chunks,
-                                      kind == CT_SEEDED)
+                                      kind == CT_SEEDED,
+                                      kind == CT_TRANSCIPHER)
                 elif ftype == wf.T_CT_CHUNK:
                     if meta is None:
                         raise wf.WireError("CT_CHUNK before UPDATE_BEGIN")
@@ -397,21 +515,34 @@ class StreamIngest:
                            else "seeded"
                            if isinstance(inner, _c.SeededCiphertext)
                            else "full")
-                    want = "seeded" if meta.seeded else "full"
+                    want = ("masked" if meta.transcipher
+                            else "seeded" if meta.seeded else "full")
                     if got != want:
                         raise wf.WireError(
                             f"CT_CHUNK {chunk_idx} carries a {got} payload "
                             f"but the update's declared ct_kind expects "
                             f"{want}")
-                    self._buffer_wire_chunk(chunk_idx, inner, w_mont)
+                    self._buffer_wire_chunk(meta, chunk_idx, inner, w_mont)
                     n_buffered += 1
                 elif ftype == wf.T_TRANSCIPHER_SEED:
                     if meta is None:
                         raise wf.WireError(
                             "TRANSCIPHER_SEED before UPDATE_BEGIN")
-                    raise wf.WireError(
-                        "TRANSCIPHER_SEED frame in a non-transcipher "
-                        "update (declared ct_kind is not CT_TRANSCIPHER)")
+                    if not meta.transcipher:
+                        raise wf.WireError(
+                            "TRANSCIPHER_SEED frame in a non-transcipher "
+                            "update (declared ct_kind is not "
+                            "CT_TRANSCIPHER)")
+                    sct, _ = wf.deserialize(payload, self.ctx, off=0)
+                    if not isinstance(sct, _c.SeededCiphertext):
+                        raise wf.WireError(
+                            "TRANSCIPHER_SEED must nest a seeded-"
+                            f"ciphertext frame, got {type(sct).__name__}")
+                    escrow_key = (meta.cid, meta.round)
+                    if escrow_key not in escrow_prev:
+                        escrow_prev[escrow_key] = self.escrow_seeds.get(
+                            escrow_key, _ESCROW_MISSING)
+                    self.escrow_seeds[escrow_key] = sct
                 elif ftype == wf.T_PLAIN_SEGMENT:
                     arr, codec, qscale = wf._parse_plain_segment(payload)
                     ref_shape = (tuple(self._acc_plain.shape)
@@ -439,6 +570,11 @@ class StreamIngest:
             if n_buffered:
                 del self._pending[len(self._pending) - n_buffered:]
                 self._note_decoded(-n_buffered)
+            for key, prev in escrow_prev.items():
+                if prev is _ESCROW_MISSING:
+                    self.escrow_seeds.pop(key, None)
+                else:
+                    self.escrow_seeds[key] = prev
             self._in_scale = prev_in_scale
             self._shape = prev_shape
             self.rejected_updates += 1
@@ -466,7 +602,8 @@ class StreamIngest:
                         (1,) + tuple(data.shape[1:]))
         for b in range(data.shape[0]):
             self._pending.append(_Ready(b, w_mont,
-                                        data[b].to(self.ctx.device)))
+                                        data[b].to(self.ctx.device),
+                                        kind="device"))
             self._note_decoded(+1)
         self.flush()
         self._fold_plain(upd.plain.to(self.ctx.device, torch.float32),

@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.ckks import cipher, encoding, params
+from repro_torch.core.ckks import cipher, encoding, params, transcipher
 from repro_torch.core.secure_agg import ProtectedUpdate
-from repro_torch.kernels import he_agg, ntt, ops, pointwise, ref
+from repro_torch.kernels import he_agg, lift, ntt, ops, pointwise, ref
 from repro_torch.wire import compress, stream
 
 pytestmark = pytest.mark.cuda
@@ -59,7 +59,8 @@ def test_kernels_match_plain_versions(cuda, n):
         assert torch.equal(got, want)
     assert ops.launch_counts() == {"ntt_fwd": 1, "ntt_inv": 1, "mul_add": 1,
                                    "weighted_sum": 1,
-                                   "weighted_accum_chunks": 0}
+                                   "weighted_accum_chunks": 0,
+                                   "mod_lift": 0}
 
 
 def test_strided_operands_and_ciphertext_layout(cuda):
@@ -110,6 +111,73 @@ def test_weighted_accum_chunks_matches_plain_version(cuda, k, limb_axis):
     assert torch.equal(got, want)
     assert torch.equal(inplace, want)
     assert ops.launch_counts()["weighted_accum_chunks"] == 2
+
+
+@pytest.mark.parametrize("k", [1, 7, 300])
+@pytest.mark.parametrize("l", [2, 3])
+def test_mod_lift_matches_plain_version(cuda, k, l):
+    """Full-range words, every edge of the u32 range among them, on rows of
+    N=8192 (the main path's) and N=4 (one vector a row)."""
+    ctx = params.make_test_context(n_poly=1024, n_limbs=l, delta_bits=20,
+                                   device=cuda)
+    qs = ctx.device_tables.qs
+    rng = np.random.RandomState(k + l)
+    for n in (8192, 4):
+        x = rng.randint(0, 1 << 32, size=(k, n), dtype=np.uint64).astype(
+            np.uint32)
+        x.reshape(-1)[:4] = [0, 1 << 31, (1 << 32) - 2, (1 << 32) - 1]
+        xt = torch.from_numpy(x.view(np.int32)).to(cuda)
+        ops.reset_launch_counts()
+        got = lift.mod_lift_fused(xt, qs)
+        want = ref.mod_lift_fused(xt, qs)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert ops.launch_counts()["mod_lift"] == 1
+
+
+def test_transcipher_round_on_the_card_matches_the_cpu(cuda):
+    """provision, mask, pack, StreamIngest of two masked blobs (one a
+    spanned provisioned range) and finalize: the same bits and bytes on the
+    card as on the CPU."""
+    rng = np.random.RandomState(8)
+    n, b = 1024, 3
+    s_mont = rng.randint(0, 1 << 20, (2, n))
+    e = np.rint(3.2 * rng.randn(2, b, n))
+    escrow_e = np.rint(3.2 * rng.randn(1, n))
+    vals = rng.randn(2, b, n // 2).astype(np.float32)
+    plain = rng.randn(300).astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = params.make_test_context(n_poly=n, n_limbs=2, delta_bits=20,
+                                       device=dev)
+        sk = {"s_mont": torch.from_numpy(s_mont.astype(np.int32)).to(dev)}
+        ing = stream.StreamIngest(ctx)
+        res, blobs = [], []
+        for c, derive in enumerate((compress.DERIVE_CTR,
+                                    compress.DERIVE_FOLD_CHUNK)):
+            cm, sm = transcipher.provision_from_samples(
+                ctx, sk, torch.from_numpy(e[c]).to(dev),
+                torch.from_numpy(escrow_e).to(dev), 2 ** 64 - 5 + c,
+                300 + c, chunk_offset=2 * c, derive=derive)
+            ing.add_transcipher_materials(c, 0, sm)
+            masked = transcipher.mask_values(ctx, cm, vals[c])
+            blobs.append(stream.pack_masked_update_frames(
+                compress.MaskedChunk(masked=masked, a_seed=cm.a_seed,
+                                     scale=cm.scale,
+                                     chunk_offset=cm.chunk_offset,
+                                     derive=cm.derive),
+                compress.seed_compress(cm.seed_ct, cm.escrow_a_seed,
+                                       cm.derive),
+                torch.from_numpy(plain).to(dev), cid=c, n_samples=1))
+            ing.ingest(blobs[-1], 0.5)
+            res += [sm.d, cm.seed_ct.data]
+        glob = ing.finalize()
+        res += [glob.ct.data, glob.plain.view(torch.int32)]
+        out.append(([r.cpu() for r in res], blobs))
+    (got, got_blobs), (want, want_blobs) = out
+    assert got_blobs == want_blobs
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_round_on_the_card_matches_the_cpu(cuda):
@@ -205,6 +273,10 @@ def test_wrappers_raise_on_what_they_do_not_take(cuda):
                           t.qinv_negs)
     with pytest.raises(ValueError, match="on cpu"):
         pointwise.mul_add_fused(x, x, x, t.qs.cpu(), t.qinv_negs)
+    with pytest.raises(ValueError, match="aligned"):
+        lift.mod_lift_fused(x.view(-1)[1:257], t.qs)
+    with pytest.raises(ValueError, match="N must be a power of two"):
+        lift.mod_lift_fused(x[..., :100].contiguous(), t.qs)
     with pytest.raises(ValueError, match="w_mont"):
         he_agg.he_weighted_sum_fused(torch.stack([x, x]), t.qs[None],
                                      t.qs, t.qinv_negs)

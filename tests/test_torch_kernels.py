@@ -1,7 +1,8 @@
 """The port's kernels and their plain versions against the JAX package.
 
-For each kernel of the port (ntt_fwd, ntt_inv, mul_add, weighted_sum and
-the streaming flush weighted_accum_chunks) the port's plain PyTorch version
+For each kernel of the port (ntt_fwd, ntt_inv, mul_add, weighted_sum, the
+streaming flush weighted_accum_chunks and the transcipher's mod_lift) the
+port's plain PyTorch version
 must equal, bit for bit, both the JAX package's `ref` op and its Pallas
 kernel run in interpret mode, on the same numpy-seeded inputs at N in
 {256, 1024}, L=2.  The NTT
@@ -24,13 +25,15 @@ import jax
 
 from repro.core.ckks import params as jparams
 from repro.kernels import he_agg as jhe_agg
+from repro.kernels import lift as jlift
 from repro.kernels import ntt as jntt
 from repro.kernels import pointwise as jpointwise
 from repro.kernels import ref as jref
 
 from repro_torch import interop
 from repro_torch.core.ckks import params as tparams
-from repro_torch.kernels import build, he_agg, ntt, ops, pointwise, ref
+from repro_torch.kernels import (build, he_agg, lift, ntt, ops, pointwise,
+                                 ref)
 
 import gold
 
@@ -219,6 +222,27 @@ def test_weighted_accum_chunks_in_ciphertext_layout(n):
     _assert_same(tacc, np.moveaxis(np.asarray(want), -2, -3))
 
 
+@pytest.mark.parametrize("l", [2, 3])
+@pytest.mark.parametrize("n", NS)
+def test_mod_lift_matches_jax(n, l):
+    """Full-range words, the edges 0, 2**31 - 1, 2**31, 2**32 - 2 and
+    2**32 - 1 among them (every word >= 2**31 is a negative int32 in the
+    port): the plain version equals the JAX package's ref and its Pallas
+    kernel (interpret), and ops.mod_lift on the CPU runs it."""
+    jctx, tctx = _ctxs(n, l)
+    rng = np.random.RandomState(n + l)
+    x = rng.randint(0, 1 << 32, size=(5, n), dtype=np.uint64).astype(
+        np.uint32)
+    x[0, :5] = [0, (1 << 31) - 1, 1 << 31, (1 << 32) - 2, (1 << 32) - 1]
+    qs = jctx.tables.qs
+    port = ref.mod_lift_fused(_t(x), tctx.device_tables.qs)
+    _assert_same(port, _jref(jref.mod_lift_fused, x, qs),
+                 jlift.mod_lift_fused(x, qs, interpret=True))
+    _assert_same(port, (x.astype(np.uint64)[:, None, :]
+                        % np.asarray(jctx.primes, np.uint64)[:, None]))
+    assert torch.equal(ops.mod_lift(_t(x), l, tctx), port)
+
+
 @pytest.mark.parametrize("name", sorted(gold.KAT_CONTEXTS))
 def test_ntt_gold_vectors(name):
     """The NTT known-answer vectors (which no PRNG touches) bit for bit."""
@@ -247,13 +271,16 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                      tctx)
     ops.weighted_accum_chunks(x, x, torch.ones(2, 2, dtype=torch.int32),
                               tctx)
+    ops.mod_lift(x[:, 0], 2, tctx)
     assert ops.launch_counts() == {"ntt_fwd": 0, "ntt_inv": 0, "mul_add": 0,
                                    "weighted_sum": 0,
-                                   "weighted_accum_chunks": 0}
+                                   "weighted_accum_chunks": 0,
+                                   "mod_lift": 0}
 
 
 @pytest.mark.parametrize("op", ["ntt_fwd", "ntt_inv", "mul_add",
-                                "weighted_sum", "weighted_accum_chunks"])
+                                "weighted_sum", "weighted_accum_chunks",
+                                "mod_lift"])
 def test_wrappers_refuse_tensors_neither_cpu_nor_cuda(op):
     """A non-CPU tensor goes to the kernel or raises; it never runs the
     plain version.  (`meta` stands in for a device without a kernel.)"""
@@ -271,6 +298,8 @@ def test_wrappers_refuse_tensors_neither_cpu_nor_cuda(op):
         elif op == "weighted_accum_chunks":
             he_agg.he_weighted_accum_chunks_fused(x, x, x[:, :, 0], t.qs,
                                                   t.qinv_negs)
+        elif op == "mod_lift":
+            lift.mod_lift_fused(x[:, 0], t.qs)
         else:
             he_agg.he_weighted_sum_fused(x[None], x[0, :, :2], t.qs,
                                          t.qinv_negs)

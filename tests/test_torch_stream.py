@@ -325,8 +325,9 @@ def test_fuzzed_blobs_reject_without_trace(keys):
 
 
 def test_transcipher_update_rejected_and_rolled_back(keys):
-    """A CT_TRANSCIPHER update (framed by the JAX package) raises WireError
-    naming the unported ingest, and leaves no trace."""
+    """A CT_TRANSCIPHER update (framed by the JAX package) from a client
+    with no provisioned transcipher materials raises WireError, and leaves
+    no trace, its escrow frame included."""
     rng = np.random.RandomState(6)
     mc = jcomp.MaskedChunk(
         masked=rng.randint(0, 2 ** 32, (2, 256),
@@ -342,10 +343,11 @@ def test_transcipher_update_rejected_and_rolled_back(keys):
     ti.ingest(_jax_blobs(keys)[0], 1.0)
     clean = tstream.StreamIngest(keys["tctx"])
     clean.ingest(_jax_blobs(keys)[0], 1.0)
-    with pytest.raises(twf.WireError, match="not ported yet"):
+    with pytest.raises(twf.WireError, match="no transcipher materials"):
         ti.ingest(blob, 1.0)
     clean.rejected_updates = 1
     _assert_same_state(ti, clean)
+    assert not ti.escrow_seeds
 
 
 # ---------------------------------------------------------------------------
