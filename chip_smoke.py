@@ -34,10 +34,22 @@ non-zero before doing anything:
    outside the counted run: the aggregate must equal, bit for bit, the
    weighted_sum of seeded encryptions of the same coefficients with the
    same gaussian draws and a_seeds, and every escrow frame must decrypt to
-   its client's keystream seed.
+   its client's keystream seed;
+6. sharded round: the sharded HE engine (DESIGN.md §8) on a (data 2,
+   model 2) mesh of four slots, the visible cards round-robin (one card
+   four times on a one-card machine) -- ShardedHe.keygen, server_aggregate
+   (sharded=) of phase 3's updates, a weighted_accum fold of them from a
+   broadcast zero accumulator, launch.fl_step's limb-sharded step,
+   client_protect_seeded (sharded=) of one client, StreamIngest (sharded=)
+   of phase 4's three blobs with finalize, and client_recover_params
+   (sharded=).  Every result must equal its single-device counterpart bit
+   for bit (the plaintext step within float32 rounding), every block must
+   lie on its slot's device, and the engine must gather exactly twice
+   (decrypt and the ingest's hand-off).
 
-Phases 3, 4 and 5 each run with the launch counters set to 0 just before and
-read just after, under torch.profiler (device busy share, time by kernel).
+Phases 3, 4, 5 and 6 each run with the launch counters set to 0 just before
+and read just after, under torch.profiler (device busy share, time by
+kernel).
 Each must recover the plaintext FedAvg within 1e-2 (the quickstart's
 bound) with exactly its expected launch counts; the wire round must also
 fold with one accumulate launch per client and hold at most one update's
@@ -65,11 +77,12 @@ import torch  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import packing  # noqa: E402
 from repro_torch.core.ckks import (  # noqa: E402
-    cipher, encoding, params, transcipher)
+    cipher, encoding, params, sharded, transcipher)
 from repro_torch.core.secure_agg import (  # noqa: E402
     AggregatorConfig, ProtectedUpdate, SelectiveHEAggregator)
 from repro_torch.kernels import (  # noqa: E402
     build, he_agg, lift, ntt, ops, pointwise, ref)
+from repro_torch.launch import fl_step, mesh as he_mesh  # noqa: E402
 from repro_torch.wire import budget, compress, format as wf  # noqa: E402
 from repro_torch.wire import stream  # noqa: E402
 
@@ -98,17 +111,27 @@ P_RATIO = 0.1
 # blob, and decrypt; the transcipher round runs three provisions (D: one
 # mod_lift, ntt_fwd and mul_add; the escrow encrypt: 2 ntt_fwd, 1 mul_add),
 # no kernel on the clients, one mod_lift, ntt_fwd and accumulate launch per
-# ingested blob, and decrypt
+# ingested blob, and decrypt; the sharded round launches once per block of
+# its four: keygen (2 ntt_fwd), server_aggregate and the fl_step step (one
+# weighted_sum each), the three-client fold (3 weighted_accum), one seeded
+# encrypt (2 ntt_fwd, 1 mul_add), one accumulate per ingested blob, and
+# decrypt (mul_add, ntt_inv)
 EXPECTED_LAUNCHES = {
     "in_memory": {"ntt_fwd": 14, "ntt_inv": 1, "mul_add": 7,
-                  "weighted_sum": 1, "weighted_accum_chunks": 0,
-                  "mod_lift": 0},
+                  "weighted_sum": 1, "weighted_accum": 0,
+                  "weighted_accum_chunks": 0, "mod_lift": 0},
     "wire": {"ntt_fwd": 6, "ntt_inv": 1, "mul_add": 4, "weighted_sum": 0,
-             "weighted_accum_chunks": 3, "mod_lift": 0},
+             "weighted_accum": 0, "weighted_accum_chunks": 3,
+             "mod_lift": 0},
     "transcipher": {"ntt_fwd": 12, "ntt_inv": 1, "mul_add": 7,
-                    "weighted_sum": 0, "weighted_accum_chunks": 3,
-                    "mod_lift": 6},
+                    "weighted_sum": 0, "weighted_accum": 0,
+                    "weighted_accum_chunks": 3, "mod_lift": 6},
+    "sharded": {"ntt_fwd": 16, "ntt_inv": 4, "mul_add": 8,
+                "weighted_sum": 8, "weighted_accum": 12,
+                "weighted_accum_chunks": 12, "mod_lift": 0},
 }
+MESH_SLOTS = 4         # the sharded round's mesh: data 2 x model 2 at L = 2
+EXPECTED_GATHERS = 2   # decrypt's gather of limb shards, finalize's hand-off
 MAX_ERR = 1e-2
 PLAIN_CODEC = "f16"
 A_SEED0 = 100          # client i seeds its public `a` with A_SEED0 + i
@@ -132,6 +155,8 @@ KERNELS = {
                 "src/repro/kernels/pointwise.py:26"),
     "weighted_sum": ("src/repro_torch/kernels/csrc/he_agg.cu",
                      "src/repro/kernels/he_agg.py:32"),
+    "weighted_accum": ("src/repro_torch/kernels/csrc/he_agg.cu",
+                       "src/repro/kernels/he_agg.py:103"),
     "weighted_accum_chunks": ("src/repro_torch/kernels/csrc/he_agg.cu",
                               "src/repro/kernels/he_agg.py:162"),
     "mod_lift": ("src/repro_torch/kernels/csrc/lift.cu",
@@ -212,6 +237,8 @@ def check_kernels(ctx, gen, n_rows):
     w_rows = torch.from_numpy(encoding.encode_weights_mont(
         [0.2, 0.3, 0.5], ctx).view(np.int32).copy()).to(dev)[
             torch.arange(n_rows, device=dev) % N_CLIENTS].contiguous()
+    # the sharded fold: one client into a running accumulator, one weight
+    w_one = w[0].contiguous()
     # the transcipher's masked words span the whole u32 range: random
     # int32 bits with the edges 0, 2**31 - 1, 2**31, 2**32 - 2, 2**32 - 1
     words = torch.randint(-2 ** 31, 2 ** 31, (n_rows, n), generator=gen,
@@ -247,6 +274,13 @@ def check_kernels(ctx, gen, n_rows):
             cts.shape,
             4 * ((N_CLIENTS + 1) * cts[0].numel() + N_CLIENTS * l + 2 * l),
             MULS_PER_MONT * N_CLIENTS * cts[0].numel()),
+        "weighted_accum": (
+            lambda: he_agg.he_weighted_accum_fused(
+                acc, cts[0], w_one, t.qs, t.qinv_negs, limb_axis=-3),
+            lambda: ref.he_weighted_accum_fused(
+                acc, cts[0], w_one, t.qs, t.qinv_negs, limb_axis=-3),
+            acc.shape, 4 * (3 * acc.numel() + 3 * l),
+            MULS_PER_MONT * acc.numel()),
         "weighted_accum_chunks": (
             lambda: he_agg.he_weighted_accum_chunks_fused(
                 acc, cts[0], w_rows, t.qs, t.qinv_negs, limb_axis=-3),
@@ -294,8 +328,41 @@ def check_kernels(ctx, gen, n_rows):
             f"plain_ms={plain_ms:.4f}  bound_ms={bound_ms:.4f} ({bound_by}, "
             f"{nbytes / 1e9:.3f} GB, {nops / 1e9:.3f} G int ops)  "
             f"library call: {lib}")
+    check_accum_variants(acc, cts[0], w_one, t)
     log("kernels: " + ", ".join(rows))
     return rows
+
+
+def check_accum_variants(acc, ct, w, t):
+    """weighted_accum with its accumulator broadcast (one row, read for
+    every row of ct) and folded in place (out=acc), exact against the plain
+    version; the broadcast's time is printed beside the full one's."""
+    one = acc[:1].contiguous()
+    got = he_agg.he_weighted_accum_fused(one, ct, w, t.qs, t.qinv_negs,
+                                         limb_axis=-3)
+    want = ref.he_weighted_accum_fused(one, ct, w, t.qs, t.qinv_negs,
+                                       limb_axis=-3)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("weighted_accum with a broadcast accumulator "
+                             "differs from its plain version")
+    del got
+    want = ref.he_weighted_accum_fused(acc, ct, w, t.qs, t.qinv_negs,
+                                       limb_axis=-3)
+    folded = acc.clone()
+    he_agg.he_weighted_accum_fused(folded, ct, w, t.qs, t.qinv_negs,
+                                   limb_axis=-3, out=folded)
+    torch.cuda.synchronize()
+    if not torch.equal(folded, want):
+        raise AssertionError("weighted_accum in place (out=acc) differs "
+                             "from its plain version")
+    del folded, want
+    ms = time_ms(lambda: he_agg.he_weighted_accum_fused(
+        one, ct, w, t.qs, t.qinv_negs, limb_axis=-3), 10)
+    bound_ms, _ = bound(4 * (2 * ct.numel() + one.numel() + 3 * ct.shape[1]),
+                        MULS_PER_MONT * ct.numel())
+    log(f"kernel weighted_accum: exact with a broadcast [1, L, 2, N] "
+        f"accumulator (ms={ms:.4f}, bound_ms={bound_ms:.4f}) and in place")
 
 
 def small_round(c, draws, a, vals, plain):
@@ -517,7 +584,6 @@ def in_memory_round(seed):
     glob = agg.server_aggregate(updates, [1 / N_CLIENTS] * N_CLIENTS)
     sync()
     times["server_aggregate"] = time.perf_counter() - t
-    del updates
 
     t = time.perf_counter()
     recovered = agg.client_recover_params(glob, sk)
@@ -528,8 +594,11 @@ def in_memory_round(seed):
     expect = expect / N_CLIENTS           # plaintext FedAvg, flat
     check_recovered("in_memory", recovered, expect)
     check_launches("in_memory", counts)
-    return counts, {"ctx": ctx, "sk": sk, "agg": agg, "model": model,
-                    "expect": expect, "n_rows": rep["n_ciphertexts"]}
+    # the sharded round (phase 6) aggregates the same updates
+    return counts, {"ctx": ctx, "sk": sk, "pk": pk, "agg": agg,
+                    "model": model, "expect": expect,
+                    "n_rows": rep["n_ciphertexts"], "updates": updates,
+                    "aggregate": glob}
 
 
 def uplink_blob_bytes(n_rows, n_limbs, n_poly, n_plain):
@@ -592,7 +661,7 @@ def wire_round(seed, st):
     sync()
     times["finalize"] = time.perf_counter() - t
     up_sizes = [len(b) for b in blobs]
-    del blobs
+    st["blobs"], st["wire_aggregate"] = blobs, glob.ct.data  # for phase 6
 
     t = time.perf_counter()
     down = wf.serialize_update(glob)
@@ -783,6 +852,155 @@ def check_transcipher_reference(seed, st, out):
         f"{time.perf_counter() - t0:.3f} s")
 
 
+def sharded_round(seed, st):
+    """The sharded engine at full width over the in-memory round's updates
+    and the wire round's blobs; returns its launch counts and the results
+    the checks after it need."""
+    sync = torch.cuda.synchronize
+    ctx, agg, model = st["ctx"], st["agg"], st["model"]
+    weights = [1 / N_CLIENTS] * N_CLIENTS
+    devices = [torch.device("cuda", i % torch.cuda.device_count())
+               for i in range(MESH_SLOTS)]
+    mesh = he_mesh.make_he_mesh(ctx.n_limbs, devices=devices)
+    log(f"sharded mesh {mesh.shape}: " + "; ".join(
+        f"slot ({d}, {m}) on {mesh.device(d, m)}"
+        for d in range(mesh.n_data) for m in range(mesh.n_model)))
+    eng = sharded.ShardedHe(ctx, mesh)
+    times, out = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    t = time.perf_counter()
+    sk, pk = eng.keygen(torch.Generator(device=ctx.device).manual_seed(seed))
+    sync()
+    times["ShardedHe.keygen"] = time.perf_counter() - t
+    out["keys"] = (sk, pk)
+
+    t = time.perf_counter()
+    out["aggregate"] = agg.server_aggregate(st["updates"], weights,
+                                            sharded=eng)
+    sync()
+    times["server_aggregate(sharded=)"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    zero = cipher.Ciphertext(torch.zeros(
+        (ctx.n_limbs, 2, ctx.n_poly), dtype=torch.int32, device=ctx.device),
+        ctx.delta)
+    acc = zero
+    for u, w in zip(st["updates"], weights):
+        acc = eng.weighted_accum(acc, u.ct, w)
+    sync()
+    times["weighted_accum fold x3"] = time.perf_counter() - t
+    out["fold"] = acc
+    del acc
+
+    t = time.perf_counter()
+    spec = fl_step.HeAggSpec(N_CLIENTS, st["n_rows"], agg.part.n_plain, ctx)
+    if not spec.limb_sharded(mesh):
+        raise AssertionError("fl_step: the mesh should shard the limbs")
+    out["step"] = fl_step.make_he_agg_step(spec, weights, mesh)(
+        torch.stack([u.ct.data for u in st["updates"]]),
+        torch.stack([u.plain for u in st["updates"]]))
+    sync()
+    times["fl_step (limb-sharded)"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    out["seeded"] = agg.client_protect_seeded(
+        model, sk, torch.Generator(device=ctx.device).manual_seed(seed + 50),
+        a_seed=A_SEED0 + 50, sharded=eng)
+    sync()
+    times["client_protect_seeded(sharded=)"] = time.perf_counter() - t
+
+    ingest = stream.StreamIngest(ctx, sharded=eng)
+    for i, blob in enumerate(st["blobs"]):
+        t = time.perf_counter()
+        ingest.ingest(blob, 1 / N_CLIENTS)
+        sync()
+        times[f"StreamIngest(sharded=).ingest[{i}]"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["ingest"] = ingest.finalize()
+    sync()
+    times["finalize (gather)"] = time.perf_counter() - t
+    out["ingest_acc"] = ingest._acc
+
+    t = time.perf_counter()
+    out["recovered"] = agg.client_recover_params(out["aggregate"], sk,
+                                                 sharded=eng)
+    sync()
+    times["client_recover_params(sharded=)"] = time.perf_counter() - t
+    counts = ops.launch_counts()
+    report_times("sharded", times, t0)
+    log(f"sharded ingest: accum_launches={ingest.accum_launches} "
+        f"peak_chunk_buffers={ingest.peak_chunk_buffers}; engine gathers "
+        f"{eng.gathers}")
+    if not ingest.accum_launches == N_CLIENTS == ingest.clients_ingested:
+        raise AssertionError("sharded: not one accumulate flush per client")
+    if ingest.peak_chunk_buffers != st["n_rows"]:
+        raise AssertionError(f"sharded: peak_chunk_buffers "
+                             f"{ingest.peak_chunk_buffers} != {st['n_rows']}")
+    if eng.gathers != EXPECTED_GATHERS:
+        raise AssertionError(f"sharded: {eng.gathers} gathers, expected "
+                             f"{EXPECTED_GATHERS} (decrypt, finalize)")
+    return counts, out
+
+
+def check_sharded(seed, st, out):
+    """Every sharded result against its single-device counterpart, and
+    every block on its slot's device."""
+    ctx, agg, model = st["ctx"], st["agg"], st["model"]
+    t0 = time.perf_counter()
+    sk, pk = out["keys"]
+    want = st["aggregate"].ct.data
+    checks = {
+        "keygen s": (sk["s_mont"], st["sk"]["s_mont"]),
+        "keygen pk0": (pk["pk0_mont"], st["pk"]["pk0_mont"]),
+        "keygen pk1": (pk["pk1_mont"], st["pk"]["pk1_mont"]),
+        "server_aggregate": (out["aggregate"].ct.data, want),
+        "weighted_accum fold": (out["fold"].data, want),
+        "fl_step ciphertext": (out["step"][0], want),
+    }
+    ref_seeded = agg.client_protect_seeded(
+        model, st["sk"], torch.Generator(device=ctx.device).manual_seed(
+            seed + 50), a_seed=A_SEED0 + 50)
+    checks["client_protect_seeded"] = (out["seeded"].ct.data,
+                                       ref_seeded.ct.data)
+    for what, (grid, ref_t) in checks.items():
+        if not grid.on_slot_devices():
+            raise AssertionError(f"sharded {what}: a block is not on its "
+                                 "slot's device")
+        if not grid.equals(ref_t):
+            raise AssertionError(f"sharded {what} differs from the "
+                                 "single-device result")
+    if not torch.equal(out["seeded"].plain, ref_seeded.plain):
+        raise AssertionError("sharded client_protect_seeded: plain differs")
+    if not out["ingest_acc"].on_slot_devices():
+        raise AssertionError("sharded ingest: an accumulator block is not "
+                             "on its slot's device")
+    if not torch.equal(out["ingest"].ct.data, st["wire_aggregate"]):
+        raise AssertionError("sharded ingest aggregate differs from the "
+                             "wire round's")
+    if not torch.equal(out["aggregate"].plain, st["aggregate"].plain):
+        raise AssertionError("sharded server_aggregate plain differs")
+    pt, ref_pt = out["step"][1], st["aggregate"].plain
+    if not pt.on_slot_devices():
+        raise AssertionError("fl_step plain: a block is not on its slot's "
+                             "device")
+    pt = pt.assemble(ctx.device)
+    tol = 4 * float(torch.finfo(torch.float32).eps) * float(
+        ref_pt.abs().max())
+    pt_err = float((pt - ref_pt).abs().max())
+    if not pt_err <= tol:
+        raise AssertionError(f"fl_step plain part off the einsum by {pt_err}"
+                             f" (float32 rounding bound {tol})")
+    err = check_recovered("sharded", out["recovered"], st["expect"])
+    log(f"sharded: {', '.join(checks)}, the ingest aggregate (vs the wire "
+        f"round's) bit-identical to the single-device results, every block "
+        f"on its slot's device; fl_step plain within {pt_err:.3e} of the "
+        f"einsum (bound {tol:.3e}); FedAvg error {err:.3e}; "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -820,7 +1038,13 @@ def main():
     with traced("transcipher"):
         by_path["transcipher"], tc_out = transcipher_round(args.seed, state)
     check_transcipher_reference(args.seed, state, tc_out)
-    del state, tc_out
+    del tc_out
+    torch.cuda.empty_cache()
+    with traced("sharded"):
+        by_path["sharded"], sh_out = sharded_round(args.seed, state)
+    check_launches("sharded", by_path["sharded"])
+    check_sharded(args.seed, state, sh_out)
+    del state, sh_out
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}

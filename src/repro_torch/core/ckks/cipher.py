@@ -278,9 +278,17 @@ def encrypt_coeffs_seeded_from_samples(ctx: CkksContext, sk: dict, m_coeff,
     residue of -(a s R^-1), the same bits as the JAX package's
     mod_neg(mont_mul(a, s)).  `a_seed` must be unique per (client, round):
     reuse leaks m1 - m2."""
+    a = expand_a_rows(ctx, a_seed, 0, m_coeff.shape[0], derive)  # [B, L, N]
+    return encrypt_coeffs_seeded_with_a(ctx, sk, m_coeff, e_sym, a, scale)
+
+
+def encrypt_coeffs_seeded_with_a(ctx: CkksContext, sk: dict, m_coeff,
+                                 e_sym, a,
+                                 scale: float | None = None) -> Ciphertext:
+    """The seeded encrypt's arithmetic given its public rows a
+    int32[B, L, N]: c0 = -(a s) + e + m, c1 = a (the sharded engine hands
+    each block its slice of the rows expanded for every limb)."""
     scale = float(scale if scale is not None else ctx.delta)
-    b = m_coeff.shape[0]
-    a = expand_a_rows(ctx, a_seed, 0, b, derive)                 # [B, L, N]
     em = ops.mod_add(ops.ntt_fwd(centered_residues(e_sym, ctx), ctx),
                      ops.ntt_fwd(m_coeff, ctx), ctx)
     c0 = ops.mul_add(a, ops.mod_neg(sk["s_mont"], ctx)[None], em, ctx)

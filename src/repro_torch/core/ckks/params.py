@@ -198,7 +198,15 @@ class LimbTables:
             return self
         if not 1 <= l <= self.n_limbs:
             raise ValueError(f"cannot take {l} of {self.n_limbs} limbs")
-        return LimbTables(**{f.name: getattr(self, f.name)[:l]
+        return self.slice(0, l)
+
+    def slice(self, lo: int, hi: int) -> "LimbTables":
+        """Limbs [lo, hi): the tables of one model shard of the sharded
+        engine, which owns a limb range rather than the leading limbs."""
+        if not 0 <= lo < hi <= self.n_limbs:
+            raise ValueError(f"cannot slice limbs [{lo}, {hi}) of "
+                             f"{self.n_limbs}")
+        return LimbTables(**{f.name: getattr(self, f.name)[lo:hi]
                              for f in dataclasses.fields(self)})
 
     def to(self, device) -> "LimbTables":
@@ -281,6 +289,18 @@ class CkksContext:
     def device_tables(self) -> LimbTables:
         """`tables` as int32 tensors on the context's device."""
         return self.tables.to(self.device)
+
+    def limb_range(self, lo: int, hi: int, device=None) -> "CkksContext":
+        """The context of limbs [lo, hi) on `device` (default: this one's):
+        what one slot of the sharded engine runs the single-device bodies
+        with.  Its tables are `tables.slice(lo, hi)`, built once per
+        returned context; the whole range on another device is the same
+        context moved there."""
+        sub = dataclasses.replace(
+            self, primes=self.primes[lo:hi],
+            device=self.device if device is None else torch.device(device))
+        sub.__dict__["tables"] = self.tables.slice(lo, hi)
+        return sub
 
     def ciphertext_bytes(self, packed: bool = True) -> int:
         """Bytes to ship one ciphertext: ceil(log2 q) bits per coefficient

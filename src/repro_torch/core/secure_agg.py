@@ -19,8 +19,11 @@ arriving chunks with `wire.StreamIngest`.  A thin client masks its update
 with a provisioned keystream instead (`client_protect_transcipher`,
 core/ckks/transcipher.py), and the server's StreamIngest unmasks it.
 
-Everything runs on the context's device.  The sharded path of the JAX
-package is not ported yet.
+Everything runs on the context's device, or, with `sharded=` (a
+core.ckks.sharded.ShardedHe), over its mesh: ciphertext chunks along
+`data`, RNS limbs along `model`, bit-identical to the single-device path.
+A sharded result holds its ciphertext as a BlockGrid; `client_recover`
+decrypts it through the same engine.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import dp, packing, selection
-from repro_torch.core.ckks import cipher, encoding, transcipher
+from repro_torch.core.ckks import cipher, encoding, sharded as _sharded
+from repro_torch.core.ckks import transcipher
 from repro_torch.core.ckks.cipher import Ciphertext
 from repro_torch.core.ckks.params import CkksContext
 from repro_torch.core.packing import FlatSpec, MaskPartition
@@ -77,24 +81,29 @@ class SelectiveHEAggregator:
 
     # -- client side ---------------------------------------------------------
 
-    def client_protect(self, params, pk: dict,
-                       gen: torch.Generator) -> ProtectedUpdate:
+    def client_protect(self, params, pk: dict, gen: torch.Generator,
+                       sharded=None) -> ProtectedUpdate:
         vec, _ = packing.flatten_params(params)
-        return self.client_protect_vec(vec, pk, gen)
+        return self.client_protect_vec(vec, pk, gen, sharded=sharded)
 
-    def client_protect_vec(self, vec, pk: dict,
-                           gen: torch.Generator) -> ProtectedUpdate:
+    def client_protect_vec(self, vec, pk: dict, gen: torch.Generator,
+                           sharded=None) -> ProtectedUpdate:
         """Protect one flat update vector: encode + encrypt the masked part
-        (draws from `gen`), then the optional Laplace noise (from `gen`)."""
+        (draws from `gen`), then the optional Laplace noise (from `gen`).
+        With `sharded` (a ShardedHe) the encrypt runs over its mesh with
+        the same draws, bit-identical to the single-device path."""
         enc_vals, plain = packing.split_by_mask(
             vec.to(self.ctx.device), self.part)
-        ct = cipher.encrypt_values(self.ctx, pk, enc_vals, gen)
+        if sharded is not None:
+            ct = sharded.encrypt_values(pk, enc_vals, gen)
+        else:
+            ct = cipher.encrypt_values(self.ctx, pk, enc_vals, gen)
         if self.cfg.dp_b > 0:
             plain = dp.laplace_noise_vec(plain, gen, self.cfg.dp_b)
         return ProtectedUpdate(ct=ct, plain=plain)
 
     def client_protect_seeded(self, params, sk: dict, gen: torch.Generator,
-                              a_seed: int,
+                              a_seed: int, sharded=None,
                               derive: int = cipher.DERIVE_FOLD_CHUNK
                               ) -> ProtectedUpdate:
         """client_protect through the seeded secret-key encrypt: c1 is
@@ -102,13 +111,19 @@ class SelectiveHEAggregator:
         (seed, c0) and halve the ciphertext bytes.  `a_seed` must be unique
         per (client, round); `derive` is the per-chunk seed-derivation id
         the wire advertises.  The noise (and the optional Laplace noise on
-        the plaintext part) comes from `gen`."""
+        the plaintext part) comes from `gen`.  With `sharded` the encrypt
+        runs over its mesh (ShardedHe.encrypt_values_seeded), with the same
+        bits."""
         vec, _ = packing.flatten_params(params)
         enc_vals, plain = packing.split_by_mask(
             vec.to(self.ctx.device), self.part)
         del vec
-        ct = cipher.encrypt_values_seeded(self.ctx, sk, enc_vals, gen,
-                                          a_seed, derive=derive)
+        if sharded is not None:
+            ct = sharded.encrypt_values_seeded(sk, enc_vals, gen, a_seed,
+                                               derive=derive)
+        else:
+            ct = cipher.encrypt_values_seeded(self.ctx, sk, enc_vals, gen,
+                                              a_seed, derive=derive)
         if self.cfg.dp_b > 0:
             plain = dp.laplace_noise_vec(plain, gen, self.cfg.dp_b)
         return ProtectedUpdate(ct=ct, plain=plain)
@@ -132,32 +147,48 @@ class SelectiveHEAggregator:
             plain = dp.laplace_noise_vec(plain, gen, self.cfg.dp_b)
         return masked, plain
 
-    def client_recover(self, agg: ProtectedUpdate, sk: dict):
-        """Decrypt + merge -> flat global vector."""
+    def client_recover(self, agg: ProtectedUpdate, sk: dict, sharded=None):
+        """Decrypt + merge -> flat global vector.  With `sharded` the
+        decrypt runs over its mesh and gathers the limb shards once (the
+        ciphertext may be a BlockGrid from a sharded aggregate)."""
+        if sharded is not None:
+            coeffs = sharded.decrypt_to_coeffs(sk, agg.ct)
+        else:
+            coeffs = cipher.decrypt_to_coeffs(self.ctx, sk, agg.ct)
         if agg.ct.n_limbs == 2:
-            enc = cipher.decrypt_values(self.ctx, sk, agg.ct)
+            enc = encoding.decode(coeffs, self.ctx, agg.ct.scale)
         else:
             # the torch decode path is 2-limb only; any limb count goes
             # through the host path
-            enc = torch.from_numpy(
-                cipher.decrypt_values_np(self.ctx, sk, agg.ct)).to(
-                    torch.float32).to(self.ctx.device)
+            enc = torch.from_numpy(encoding.decode_np(
+                coeffs.cpu().numpy().view(np.uint32), self.ctx,
+                agg.ct.scale)).to(torch.float32).to(self.ctx.device)
         return packing.merge_by_mask(enc, agg.plain, self.part)
 
-    def client_recover_params(self, agg: ProtectedUpdate, sk: dict):
-        return packing.unflatten_params(self.client_recover(agg, sk),
-                                        self.spec)
+    def client_recover_params(self, agg: ProtectedUpdate, sk: dict,
+                              sharded=None):
+        return packing.unflatten_params(
+            self.client_recover(agg, sk, sharded=sharded), self.spec)
 
     # -- server side ---------------------------------------------------------
 
     def server_aggregate(self, updates: Sequence[ProtectedUpdate],
-                         weights: Sequence[float]) -> ProtectedUpdate:
+                         weights: Sequence[float],
+                         sharded=None) -> ProtectedUpdate:
         """sum_i alpha_i [[enc_i]]  +  sum_i alpha_i plain_i.
 
+        With `sharded` (a ShardedHe) the HE aggregation runs over its mesh
+        (chunks -> data axis, limbs -> model axis), one weighted_sum launch
+        per block, bit-identical to the single-device path; the updates'
+        ciphertexts may be tensors or BlockGrids of one layout.
+
         Returns the aggregated update (ct scale = in_scale * delta)."""
-        cts = Ciphertext(data=torch.stack([u.ct.data for u in updates]),
+        cts = Ciphertext(data=_sharded.stack([u.ct.data for u in updates]),
                          scale=updates[0].ct.scale)
-        ct_glob = cipher.weighted_sum(self.ctx, cts, list(weights))
+        if sharded is not None:
+            ct_glob = sharded.weighted_sum(cts, list(weights))
+        else:
+            ct_glob = cipher.weighted_sum(self.ctx, cts, list(weights))
         del cts
         w = torch.tensor(list(weights), dtype=torch.float32,
                          device=self.ctx.device)

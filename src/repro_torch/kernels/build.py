@@ -43,6 +43,8 @@ SIGNATURES = {
     },
     "he_agg": {
         "weighted_sum_launch": (_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+        "weighted_accum_launch": (_P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I,
+                                  _P),
         "weighted_accum_chunks_launch": (_P, _P, _P, _P, _P, _P, _LL, _I, _I,
                                          _I, _P),
     },

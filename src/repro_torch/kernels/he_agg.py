@@ -2,7 +2,8 @@
 
 The server hot loop of the paper is  sum_i alpha_i * [[W_i]]  over client
 ciphertexts.  Wrappers over `csrc/he_agg.cu`, which replaces the JAX
-package's Pallas `he_weighted_sum_fused` (in-memory aggregation) and
+package's Pallas `he_weighted_sum_fused` (in-memory aggregation),
+`he_weighted_accum_fused` (the sharded engine's fold, acc + w (*) ct) and
 `he_weighted_accum_chunks_fused` (the streaming ingest's flush,
 acc[k] + w[k] (*) ct[k]).  Each element is read once and written once.  The
 kernels read their tensors in their own layout, with the limb axis either
@@ -108,3 +109,56 @@ def he_weighted_accum_chunks_fused(acc, cts, w_mont, qs, qinv_negs,
 
 
 he_weighted_accum_chunks_fused.launches = 0
+
+
+def he_weighted_accum_fused(acc, ct, w_mont, qs, qinv_negs,
+                            limb_axis: int = -2, out=None):
+    """acc + w (*) ct mod q_l with one weight per limb, one launch.
+
+    ct: int32[..., L, ...] with the limb axis at `limb_axis` (-2 or -3);
+    acc broadcasts to ct's shape as JAX's broadcast_to does (a full
+    accumulator, or one row repeated over ct's leading axes, read in place
+    and never expanded); w_mont, qs, qinv_negs: int32[L].  `out` (default:
+    a new tensor of ct's shape) may be a full `acc` itself, which folds in
+    place.  Returns `out`."""
+    if ct.device.type == "cpu":
+        res = _ref.he_weighted_accum_fused(acc, ct, w_mont, qs, qinv_negs,
+                                           limb_axis)
+        return res if out is None else out.copy_(res)
+    _build.require_cuda("weighted_accum", ct)
+    if limb_axis not in (-2, -3) or ct.dim() < 1 - limb_axis:
+        raise ValueError(f"weighted_accum: limb_axis {limb_axis} does not "
+                         f"fit ct {tuple(ct.shape)}")
+    l = ct.shape[limb_axis]
+    inner = math.prod(ct.shape[limb_axis + 1:])
+    log_inner = _build.log2_exact(inner, "weighted_accum: elements per limb")
+    acc_shape = tuple(acc.shape)
+    while acc_shape and acc_shape[0] == 1 and len(acc_shape) > 1:
+        acc_shape = acc_shape[1:]
+    if acc_shape != tuple(ct.shape[ct.dim() - len(acc_shape):]):
+        raise ValueError(f"weighted_accum: acc {tuple(acc.shape)} is not a "
+                         f"trailing broadcast of ct {tuple(ct.shape)}")
+    out = torch.empty_like(ct) if out is None else out
+    for name, t in (("ct", ct), ("acc", acc), ("out", out)):
+        _build.check_int32(f"weighted_accum {name}", t, ct.device)
+    if out.shape != ct.shape:
+        raise ValueError(f"weighted_accum: out {tuple(out.shape)} != ct "
+                         f"{tuple(ct.shape)}")
+    for name, t in (("w_mont", w_mont), ("qs", qs), ("qinv_negs", qinv_negs)):
+        _build.check_int32(f"weighted_accum {name}", t, ct.device)
+        if t.shape != (l,):
+            raise ValueError(f"weighted_accum: {name} {tuple(t.shape)} != "
+                             f"({l},)")
+    total = ct.numel()
+    if total >> log_inner >= 1 << 32 or acc.numel() >= 1 << 32:
+        raise ValueError("weighted_accum: more than 2**32 limb rows or "
+                         "accumulator elements")
+    if total:
+        _build.launch("he_agg", "weighted_accum_launch", out, acc, ct, w_mont,
+                      qs, qinv_negs, acc.numel(), total // acc.numel(), l,
+                      log_inner)
+        he_weighted_accum_fused.launches += 1
+    return out
+
+
+he_weighted_accum_fused.launches = 0

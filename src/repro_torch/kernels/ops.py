@@ -6,10 +6,10 @@ tensor in one call.  Per-limb constants come from the context's device
 tables (`CkksContext.device_tables`), sliced to the input's limb count, so
 limb-dropped ciphertexts work unchanged.
 
-The six ops with a kernel (`ntt_fwd`, `ntt_inv`, `mul_add`,
-`weighted_sum`, `weighted_accum_chunks`, `mod_lift`) go to their wrappers,
-which launch the CUDA kernel for a CUDA tensor and run the plain version
-for a CPU tensor: the device decides,
+The seven ops with a kernel (`ntt_fwd`, `ntt_inv`, `mul_add`,
+`weighted_sum`, `weighted_accum`, `weighted_accum_chunks`, `mod_lift`) go
+to their wrappers, which launch the CUDA kernel for a CUDA tensor and run
+the plain version for a CPU tensor: the device decides,
 there is no backend switch.  The limb-wise helpers (`mod_add`, `mod_sub`,
 `mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of their own
 and are plain torch ops.
@@ -30,6 +30,7 @@ KERNELS = {
     "ntt_inv": _ntt.ntt_inv_fused,
     "mul_add": _pointwise.mul_add_fused,
     "weighted_sum": _he_agg.he_weighted_sum_fused,
+    "weighted_accum": _he_agg.he_weighted_accum_fused,
     "weighted_accum_chunks": _he_agg.he_weighted_accum_chunks_fused,
     "mod_lift": _lift.mod_lift_fused,
 }
@@ -90,6 +91,21 @@ def weighted_sum(cts, w_mont, ctx, limb_axis: int = -2):
     t = _tables(ctx, l)
     return _he_agg.he_weighted_sum_fused(cts, w_mont[:, :l].contiguous(),
                                          t.qs, t.qinv_negs, limb_axis)
+
+
+def weighted_accum(acc, ct, w_mont, ctx, limb_axis: int = -2, out=None):
+    """Streaming fold acc + w (*) ct in one launch: one client folded into a
+    running sum, bit-identical to weighted_sum applied in arrival order.
+
+    ct: int32[..., L, N] (or, with limb_axis=-3, ciphertext data
+    int32[..., L, 2, N]); acc broadcasts to ct's shape; w_mont: int32[L']
+    Montgomery weight with L' >= L.  `out` may be a full `acc` (in-place
+    fold)."""
+    l = ct.shape[limb_axis]
+    t = _tables(ctx, l)
+    return _he_agg.he_weighted_accum_fused(acc, ct, w_mont[:l].contiguous(),
+                                           t.qs, t.qinv_negs, limb_axis,
+                                           out=out)
 
 
 def weighted_accum_chunks(acc, cts, w_mont, ctx, limb_axis: int = -2,

@@ -148,6 +148,20 @@ def he_weighted_sum_fused(cts, w_mont, qs, qinv_negs, limb_axis: int = -2):
     return acc
 
 
+def he_weighted_accum_fused(acc, ct, w_mont, qs, qinv_negs,
+                            limb_axis: int = -2):
+    """Streaming fold acc + w (*) ct mod q_l with one weight per limb.
+
+    ct: int32[..., L, ...] with the limb axis at `limb_axis` (-2 for the ops
+    layout, -3 for ciphertexts); acc broadcasts to ct's shape (JAX's
+    broadcast_to: a shape that does not raises); w_mont: int32[L]."""
+    lshape = (ct.shape[limb_axis],) + (1,) * (-limb_axis - 1)
+    q = qs.reshape(lshape)
+    return mod_add(acc.expand(ct.shape),
+                   mont_mul(ct, w_mont.reshape(lshape), q,
+                            qinv_negs.reshape(lshape)), q)
+
+
 def he_weighted_accum_chunks_fused(acc, cts, w_mont, qs, qinv_negs,
                                    limb_axis: int = -2):
     """Batched streaming flush: acc[k] + w[k] (*) ct[k] mod q_l for every

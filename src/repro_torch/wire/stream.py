@@ -35,9 +35,17 @@ On the card, the flush does in batches what the reference does per chunk:
     each (cid, round)'s masked rows to the device once and unmasks them all
     with one `mod_lift`, one `ntt_fwd`, the gathered D rows and one batched
     `a` expansion, where the reference unmasks chunk by chunk;
-  * the accumulator is one dense int32 tensor [n_chunks, L, 2, N] in the
-    ciphertext layout, updated in place by the kernel; `finalize` copies it
-    out without a stack;
+  * the accumulator is dense int32 [n_chunks, L, 2, N] in the ciphertext
+    layout, updated in place by the kernel, held as a BlockGrid of the
+    ingest's engine: a 1x1 mesh on the context's device by default, or
+    the ShardedHe given as `sharded=` (chunk-index ranges on its data
+    slots, limbs on its model slots).  A flush groups its rows by owning
+    data slot, builds each block's rows on that block's device (host rows
+    copied there directly, `a` expanded there for every limb and sliced;
+    masked rows unmasked on the context's device, then copied) and folds
+    through `ShardedHe.weighted_accum_chunks`, one launch per block.
+    `finalize` hands the aggregate out as one tensor, the engine's counted
+    gather;
   * the plaintext accumulator stays on the device and folds as
     acc += float32(w) * plain with a separate multiply and add, the
     reference's numpy expression, so its bits match.
@@ -46,11 +54,11 @@ Everything a rejected update could break is validated inside ingest's
 rollback scope (frame kinds, scale, dtype, shape, derive id, seed and chunk
 offset ranges, transcipher materials and their provisioned rows), before
 the flush, and a rejected update restores every escrow seed it touched.
-Not ported yet: the `sharded=` engine, and telemetry (the counters are
-plain integer attributes).
+Not ported yet: telemetry (the counters are plain integer attributes).
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import struct
 from typing import Any
@@ -62,8 +70,9 @@ from repro_torch import interop
 from repro_torch.core.ckks import cipher, encoding, threefry, transcipher
 from repro_torch.core.ckks.cipher import Ciphertext
 from repro_torch.core.ckks.params import CkksContext
+from repro_torch.core.ckks.sharded import BlockGrid, Layout, ShardedHe
 from repro_torch.core.secure_agg import ProtectedUpdate
-from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.wire import compress as _c
 from repro_torch.wire import format as wf
 
@@ -218,9 +227,13 @@ class StreamIngest:
             ingest.ingest(blob, weight=w)
         agg = ingest.finalize()    # ProtectedUpdate, scale = in_scale*delta
 
-    `transcipher_materials` is a {(cid, round): transcipher.ServerMaterials}
-    registry (more via `add_transcipher_materials`); a masked update from
-    an unprovisioned (cid, round) is rejected.  `escrow_seeds` keeps each
+    `sharded` (a core.ckks.sharded.ShardedHe) holds the accumulator as
+    blocks over its mesh and folds each flush through the engine, one
+    launch per block; the aggregate is bit-identical to the unsharded
+    ingest's.  `transcipher_materials` is a
+    {(cid, round): transcipher.ServerMaterials} registry (more via
+    `add_transcipher_materials`); a masked update from an unprovisioned
+    (cid, round) is rejected.  `escrow_seeds` keeps each
     accepted update's escrow keystream-seed ciphertext under (cid, round).
 
     Attributes (plain integers):
@@ -229,12 +242,14 @@ class StreamIngest:
         clients_ingested, bytes_ingested, rejected_updates: ingest counts.
     """
 
-    def __init__(self, ctx: CkksContext,
+    def __init__(self, ctx: CkksContext, sharded=None,
                  transcipher_materials: dict | None = None):
         self.ctx = ctx
+        self._eng = sharded if sharded is not None else ShardedHe(
+            ctx, make_host_mesh(ctx.device))
         self._transcipher = dict(transcipher_materials or {})
         self.escrow_seeds: dict = {}
-        self._acc = None             # int32[n_rows, L, 2, N], dense
+        self._acc = None             # BlockGrid int32[n_rows, L, 2, N]
         self._acc_plain = None       # float32[n_plain] on ctx.device
         self._rows: set[int] = set()  # chunk indices folded so far
         self._shape = None           # (L, N) pinned by the first chunk
@@ -278,6 +293,10 @@ class StreamIngest:
         shape = tuple(int(d) for d in shape)
         if self._shape is None and len(shape) >= 3:
             self._shape = (shape[-3], shape[-1])
+            if shape[-3] % self._eng.n_model:
+                raise wf.WireError(
+                    f"{shape[-3]} limbs do not divide over the engine's "
+                    f"{self._eng.n_model} model slots")
         want = (1, self._shape[0], 2, self._shape[1]) if self._shape else None
         if shape != want:
             raise wf.WireError(
@@ -346,24 +365,32 @@ class StreamIngest:
         self._pending.append(row)
         self._note_decoded(+1)
 
-    def _rows_to_device(self, batch: list[_Ready]) -> torch.Tensor:
-        """The batch's ciphertext rows as int32[K, L, 2, N] on the device:
-        one host-to-device copy per kind of row (per (cid, round) for
-        masked rows), every seeded row's `a` expanded in one call per
-        (seed, derive), and every (cid, round)'s masked rows unmasked in
-        one call."""
-        dev = self.ctx.device
+    def _rows_to_blocks(self, batch: list[_Ready], slots) -> list:
+        """The batch's ciphertext rows as int32[K, hi - lo, 2, N] on each
+        slot's device, for slots [(device, lo, hi)] (limbs [lo, hi)): one
+        host-to-device copy per kind of row and slot, every seeded row's
+        `a` expanded on the slot's device in one call per (seed, derive),
+        and every (cid, round)'s masked rows unmasked on the context's
+        device in one call, then copied."""
         k = len(batch)
-        l, n = self._shape
-        cts = torch.empty((k, l, 2, n), dtype=torch.int32, device=dev)
+        n = self._shape[1]
+        full_l = self.ctx.n_limbs
+        outs = [torch.empty((k, hi - lo, 2, n), dtype=torch.int32,
+                            device=dev) for dev, lo, hi in slots]
 
-        def sel(js):   # rows of cts: all of them, or an index tensor
+        def on(dev):   # all limbs of the context on dev, for expand_a
+            return self._eng.range_ctx(dev, 0, full_l)
+
+        def sel(js, dev):   # rows of an output: all, or an index tensor
             return (slice(None) if len(js) == k
                     else torch.tensor(js, dtype=torch.int64, device=dev))
 
-        def host_rows(js):   # one copy of the rows' u32 host data
-            rows = np.stack([batch[j].data for j in js])
-            return torch.from_numpy(rows.view(np.int32)).to(dev)
+        def host_rows(js):   # the rows' u32 host data, stacked
+            return np.stack([batch[j].data for j in js])
+
+        def to(rows, lo, hi, dev):   # a limb range of host rows [K', L, ...]
+            return torch.from_numpy(np.ascontiguousarray(
+                rows[:, lo:hi]).view(np.int32)).to(dev)
 
         def ids(js):
             return torch.tensor([batch[j].a_row for j in js],
@@ -372,60 +399,114 @@ class StreamIngest:
         by_kind: dict[str, list[int]] = {}
         for j, r in enumerate(batch):
             by_kind.setdefault(r.kind, []).append(j)
-        if "full" in by_kind:
-            cts[sel(by_kind["full"])] = host_rows(by_kind["full"])
-        if "device" in by_kind:
-            cts[sel(by_kind["device"])] = torch.stack(
-                [batch[j].data for j in by_kind["device"]])
-        if "seeded" in by_kind:
-            js = by_kind["seeded"]
-            cts[sel(js), :, 0, :] = host_rows(js)
-            groups: dict[tuple[int, int], list[int]] = {}
-            for j in js:
-                groups.setdefault((batch[j].seed, batch[j].derive),
-                                  []).append(j)
-            for (seed, derive), gjs in groups.items():
-                cts[sel(gjs), :, 1, :] = cipher.expand_a_for_ids(
-                    self.ctx, seed, ids(gjs), derive)
+        groups: dict[tuple[int, int], list[int]] = {}
+        for j in by_kind.get("seeded", ()):
+            groups.setdefault((batch[j].seed, batch[j].derive), []).append(j)
         mgroups: dict[int, list[int]] = {}
         for j in by_kind.get("masked", ()):
             mgroups.setdefault(id(batch[j].materials), []).append(j)
+        full = host_rows(by_kind["full"]) if "full" in by_kind else None
+        c0 = host_rows(by_kind["seeded"]) if "seeded" in by_kind else None
+        device = (torch.stack([batch[j].data for j in by_kind["device"]])
+                  if "device" in by_kind else None)
+        unmasked = []
         for gjs in mgroups.values():
             sm = batch[gjs[0]].materials
             g_ids = ids(gjs)
-            d_rows = (g_ids - sm.chunk_offset).to(dev)
-            cts[sel(gjs), :, 0, :] = transcipher.unmask_c0(
-                self.ctx, sm, host_rows(gjs), d_rows)
-            cts[sel(gjs), :, 1, :] = cipher.expand_a_for_ids(
-                self.ctx, sm.a_seed, g_ids, sm.derive)
-        return cts
+            d_rows = (g_ids - sm.chunk_offset).to(self.ctx.device)
+            words = torch.from_numpy(host_rows(gjs).view(np.int32)).to(
+                self.ctx.device)
+            unmasked.append((gjs, transcipher.unmask_c0(
+                self.ctx, sm, words, d_rows),
+                cipher.expand_a_for_ids(self.ctx, sm.a_seed, g_ids,
+                                        sm.derive)))
+        for out, (dev, lo, hi) in zip(outs, slots):
+            if full is not None:
+                out[sel(by_kind["full"], dev)] = to(full, lo, hi, dev)
+            if device is not None:
+                out[sel(by_kind["device"], dev)] = device[:, lo:hi].to(dev)
+            if c0 is not None:
+                out[sel(by_kind["seeded"], dev), :, 0, :] = to(c0, lo, hi,
+                                                               dev)
+            for (seed, derive), gjs in groups.items():
+                out[sel(gjs, dev), :, 1, :] = cipher.expand_a_for_ids(
+                    on(dev), seed, ids(gjs), derive)[:, lo:hi]
+            for gjs, m_c0, m_a in unmasked:
+                out[sel(gjs, dev), :, 0, :] = m_c0[:, lo:hi].to(dev)
+                out[sel(gjs, dev), :, 1, :] = m_a[:, lo:hi].to(dev)
+        return outs
+
+    def _grow(self, need: int) -> None:
+        """Make room for chunk rows [0, need).  The first allocation cuts
+        the rows evenly over the data slots and later growth extends the
+        last slot's range, so no row changes slot."""
+        l, n = self._shape
+        eng, old = self._eng, self._acc
+        if old is not None and old.shape[0] >= need:
+            return
+        rows = (Layout(eng.mesh).row_offsets(need) if old is None
+                else old.rows[:-1] + (need,))
+        k = l // eng.n_model
+
+        def body(d, m):
+            if old is not None and d < eng.n_data - 1:
+                return (old.blocks[d][m],)
+            block = torch.zeros((rows[d + 1] - rows[d], k, 2, n),
+                                dtype=torch.int32,
+                                device=eng.mesh.device(d, m))
+            if old is not None:
+                block[: old.blocks[d][m].shape[0]] = old.blocks[d][m]
+            return (block,)
+
+        self._acc, = eng.map_slots(body, ((need, l, 2, n), 0, -3, rows))
 
     def _fold(self, batch: list[_Ready]) -> None:
-        """One accumulate launch over rows with distinct chunk indices."""
-        dev = self.ctx.device
-        cts = self._rows_to_device(batch)
-        ws = torch.from_numpy(np.stack([r.w_mont for r in batch])).to(dev)
-        idxs = [r.chunk_idx for r in batch]
+        """One accumulate launch a block over rows with distinct chunk
+        indices: rows grouped by the data slot that owns their chunk index,
+        each block's rows and accumulator rows on its own device, one
+        ShardedHe.weighted_accum_chunks."""
+        self._grow(max(r.chunk_idx for r in batch) + 1)
+        eng, acc = self._eng, self._acc
         l, n = self._shape
-        need = max(idxs) + 1
-        if self._acc is None or self._acc.shape[0] < need:
-            grown = torch.zeros((need, l, 2, n), dtype=torch.int32,
-                                device=dev)
-            if self._acc is not None:
-                grown[: self._acc.shape[0]] = self._acc
-            self._acc = grown
-        k = len(batch)
-        if idxs == list(range(k)):
-            view = self._acc[:k]
-            ops.weighted_accum_chunks(view, cts, ws, self.ctx, limb_axis=-3,
-                                      out=view)
-        else:
-            rows = torch.tensor(idxs, dtype=torch.int64, device=dev)
-            accs = self._acc.index_select(0, rows)
-            ops.weighted_accum_chunks(accs, cts, ws, self.ctx, limb_axis=-3,
-                                      out=accs)
-            self._acc.index_copy_(0, rows, accs)
-        self._rows.update(idxs)
+        owned: list[list[_Ready]] = [[] for _ in range(eng.n_data)]
+        for r in batch:
+            owned[bisect.bisect_right(acc.rows, r.chunk_idx) - 1].append(r)
+        rows = [0]
+        for grp in owned:
+            rows.append(rows[-1] + len(grp))
+        k = l // eng.n_model
+        cts, accs, ws, copy_back = [], [], [], []
+        for d, grp in enumerate(owned):
+            slots = [(eng.mesh.device(d, m), m * k, (m + 1) * k)
+                     for m in range(eng.n_model)]
+            cts.append(tuple(self._rows_to_blocks(grp, slots)))
+            w = np.asarray([r.w_mont for r in grp], np.int32).reshape(
+                len(grp), self.ctx.n_limbs)
+            ws.append(tuple(torch.from_numpy(w[:, lo:hi].copy()).to(dev)
+                            for dev, lo, hi in slots))
+            local = [r.chunk_idx - acc.rows[d] for r in grp]
+            a_row = []
+            for m, (dev, _, _) in enumerate(slots):
+                block = acc.blocks[d][m]
+                if local == list(range(len(local))):
+                    a_row.append(block[: len(local)])
+                else:
+                    sel = torch.tensor(local, dtype=torch.int64, device=dev)
+                    a_row.append(block.index_select(0, sel))
+                    copy_back.append((block, sel, a_row[-1]))
+            accs.append(tuple(a_row))
+
+        def grid(shape, blocks):
+            return BlockGrid(eng.mesh, shape, 0, 1, tuple(rows),
+                             tuple(blocks))
+
+        a = grid((len(batch), l, 2, n), accs)
+        eng.weighted_accum_chunks(a, grid((len(batch), l, 2, n), cts),
+                                  grid((len(batch), l), ws), limb_axis=-3,
+                                  out=a)
+        for block, sel, rows_out in copy_back:
+            block.index_copy_(0, sel, rows_out)
+        self._rows.update(r.chunk_idx for r in batch)
 
     def flush(self) -> None:
         """Fold every ready row into the accumulator: one accumulate launch
@@ -622,10 +703,8 @@ class StreamIngest:
                                "unflushed chunks pending; call flush()")
         idxs = sorted(self._rows)
         if idxs:
-            rows = torch.tensor(idxs, dtype=torch.int64,
-                                device=self._acc.device)
-            acc = self._acc.index_select(0, rows).movedim(-3, -2)
-            acc_ct = interop.residues_to_np(acc)
+            acc_ct = np.ascontiguousarray(
+                np.moveaxis(self._acc_rows(idxs), -3, -2))
         else:
             acc_ct = np.zeros((0, 2, 0, 0), dtype=np.uint32)
         arrays = {
@@ -655,12 +734,10 @@ class StreamIngest:
         acc = np.asarray(arrays["acc_ct"], dtype=np.uint32)
         if idxs:
             l, n = int(acc.shape[-2]), int(acc.shape[-1])
+            self._eng._check_limbs(l)
             self._shape = (l, n)
-            dev = self.ctx.device
-            self._acc = torch.zeros((max(idxs) + 1, l, 2, n),
-                                    dtype=torch.int32, device=dev)
-            self._acc[torch.tensor(idxs, dtype=torch.int64, device=dev)] = \
-                interop.residues_from_np(acc, dev).movedim(-2, -3)
+            self._grow(max(idxs) + 1)
+            self._put_acc_rows(idxs, np.moveaxis(acc, -2, -3))
             self._rows = set(idxs)
         if meta.get("has_plain"):
             self._acc_plain = torch.from_numpy(np.asarray(
@@ -673,6 +750,31 @@ class StreamIngest:
         self.accum_launches += int(meta.get("launches", 0))
         self.rejected_updates += int(meta.get("rejected", 0))
 
+    def _acc_rows(self, idxs) -> np.ndarray:
+        """Accumulator rows `idxs` as u32 host rows [K, L, 2, N] (each block
+        copies its own rows to the host)."""
+        acc, pos = self._acc, np.asarray(idxs)
+        out = np.empty((len(idxs),) + acc.shape[1:], dtype=np.uint32)
+        for d, m in acc.slots():
+            (r0, r1), (lo, hi) = acc.row_range(d), acc.limb_range(m)
+            js = np.nonzero((pos >= r0) & (pos < r1))[0]
+            block = acc.blocks[d][m]
+            out[js, lo:hi] = interop.residues_to_np(block.index_select(
+                0, torch.from_numpy(pos[js] - r0).to(block.device)))
+        return out
+
+    def _put_acc_rows(self, idxs, rows) -> None:
+        """Write u32 host rows [K, L, 2, N] to accumulator rows `idxs` (each
+        block from the host directly)."""
+        acc, pos = self._acc, np.asarray(idxs)
+        for d in range(acc.mesh.n_data):
+            for m in range(acc.mesh.n_model):
+                (r0, r1), (lo, hi) = acc.row_range(d), acc.limb_range(m)
+                js = np.nonzero((pos >= r0) & (pos < r1))[0]
+                block = acc.blocks[d][m]
+                block[torch.from_numpy(pos[js] - r0).to(block.device)] = \
+                    interop.residues_from_np(rows[js, lo:hi], block.device)
+
     def finalize(self) -> ProtectedUpdate:
         """-> the aggregated ProtectedUpdate (ct scale = in_scale * delta),
         a copy of the accumulators (the ingest may go on).  Raises
@@ -683,7 +785,9 @@ class StreamIngest:
         n_chunks = max(self._rows) + 1
         if sorted(self._rows) != list(range(n_chunks)):
             raise wf.WireError("missing ciphertext chunks at finalize")
-        ct = Ciphertext(data=self._acc[:n_chunks].clone(),
+        # the hand-off to the downlink is the engine's counted gather of the
+        # blocks (a copy: the ingest may go on)
+        ct = Ciphertext(data=self._eng.gather(self._acc)[:n_chunks],
                         scale=self._in_scale * self.ctx.delta)
         plain = (self._acc_plain.clone() if self._acc_plain is not None
                  else torch.zeros((0,), dtype=torch.float32,

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.ckks import cipher, encoding, params, transcipher
+from repro_torch.core.ckks import (cipher, encoding, params, sharded,
+                                   transcipher)
 from repro_torch.core.secure_agg import ProtectedUpdate
 from repro_torch.kernels import he_agg, lift, ntt, ops, pointwise, ref
+from repro_torch.launch import fl_step, mesh as tmesh
 from repro_torch.wire import compress, stream
 
 pytestmark = pytest.mark.cuda
@@ -58,7 +60,7 @@ def test_kernels_match_plain_versions(cuda, n):
     for got, want in pairs:
         assert torch.equal(got, want)
     assert ops.launch_counts() == {"ntt_fwd": 1, "ntt_inv": 1, "mul_add": 1,
-                                   "weighted_sum": 1,
+                                   "weighted_sum": 1, "weighted_accum": 0,
                                    "weighted_accum_chunks": 0,
                                    "mod_lift": 0}
 
@@ -111,6 +113,39 @@ def test_weighted_accum_chunks_matches_plain_version(cuda, k, limb_axis):
     assert torch.equal(got, want)
     assert torch.equal(inplace, want)
     assert ops.launch_counts()["weighted_accum_chunks"] == 2
+
+
+@pytest.mark.parametrize("b", [1, 7, 300])
+@pytest.mark.parametrize("l", [1, 2, 3])
+def test_weighted_accum_matches_plain_version(cuda, b, l):
+    """Both limb axes; acc of ct's shape, one row broadcast over the batch
+    (with and without its leading 1) and folded in place (out=acc)."""
+    ctx = params.make_test_context(n_poly=1024, n_limbs=l,
+                                   delta_bits=12 if l == 1 else 20,
+                                   device=cuda)
+    t = ctx.device_tables
+    rng = np.random.RandomState(10 * b + l)
+    rows = [_residues(rng, ctx, b, cuda) for _ in range(4)]    # [B, L, N]
+    w = torch.from_numpy(encoding.encode_scalar_residues(
+        0.375, ctx).view(np.int32).copy()).to(cuda)
+    for limb_axis, stack in ((-3, -2), (-2, -3)):
+        acc = torch.stack(rows[:2], dim=stack)
+        ct = torch.stack(rows[2:], dim=stack)
+        ops.reset_launch_counts()
+        for a in (acc, acc[:1], acc[0]):
+            got = he_agg.he_weighted_accum_fused(a, ct, w, t.qs, t.qinv_negs,
+                                                 limb_axis)
+            want = ref.he_weighted_accum_fused(a, ct, w, t.qs, t.qinv_negs,
+                                               limb_axis)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        want = ref.he_weighted_accum_fused(acc, ct, w, t.qs, t.qinv_negs,
+                                           limb_axis)
+        assert he_agg.he_weighted_accum_fused(acc, ct, w, t.qs, t.qinv_negs,
+                                              limb_axis, out=acc) is acc
+        torch.cuda.synchronize()
+        assert torch.equal(acc, want)
+        assert ops.launch_counts()["weighted_accum"] == 4
 
 
 @pytest.mark.parametrize("k", [1, 7, 300])
@@ -258,6 +293,78 @@ def test_wire_round_on_the_card_matches_the_cpu(cuda, partitionable):
         assert torch.equal(g, w)
 
 
+def _sharded_round(ctx, mesh, draws, a, vals, plain):
+    """Every op of the sharded engine on one mesh with injected draws;
+    returns the outputs assembled on the CPU, the engine and its grids."""
+    dev = ctx.device
+    d = {k: torch.from_numpy(v.astype(np.int32)).to(dev)
+         for k, v in draws.items()}
+    eng = sharded.ShardedHe(ctx, mesh)
+    sk, pk = eng.keygen_from_samples(d["s"], torch.from_numpy(a).to(dev),
+                                     d["e"])
+    m = torch.from_numpy(encoding.encode_np(vals, ctx).view(np.int32)).to(dev)
+    ct = eng.encrypt_coeffs_from_samples(pk, m, d["u"], d["e0"], d["e1"])
+    sct = eng.encrypt_coeffs_seeded_from_samples(sk, m, d["e0"], 21,
+                                                 derive=compress.DERIVE_CTR)
+    agg = eng.weighted_sum(cipher.Ciphertext(
+        sharded.stack([ct.data, sct.data]), ct.scale), [0.25, 0.75])
+    acc = eng.weighted_accum(cipher.Ciphertext(
+        torch.zeros(ct.data.shape[1:], dtype=torch.int32, device=dev),
+        ct.scale), ct, 0.25)
+    acc = eng.weighted_accum(acc, sct, 0.75)
+    spec = fl_step.HeAggSpec(2, vals.shape[0], plain.shape[0], ctx)
+    step_ct, step_pt = fl_step.make_he_agg_step(spec, [0.25, 0.75], mesh)(
+        torch.stack([ct.data.assemble(dev), sct.data.assemble(dev)]),
+        torch.from_numpy(np.stack([plain, -plain])).to(dev))
+    ing = stream.StreamIngest(ctx, sharded=eng)
+    for i, c in enumerate((ct, sct)):
+        ing.ingest(stream.pack_update_frames(
+            ProtectedUpdate(ct=cipher.Ciphertext(c.data.assemble(dev),
+                                                 c.scale),
+                            plain=torch.from_numpy(plain).to(dev)),
+            cid=i, n_samples=1), 0.25 + 0.5 * i)
+    grids = [sk["s_mont"], pk["pk0_mont"], ct.data, sct.data, agg.data,
+             acc.data, step_ct, step_pt]
+    out = [g.assemble("cpu") for g in grids]
+    out += [eng.decrypt_to_coeffs(sk, agg).cpu(),
+            ing.finalize().ct.data.cpu()]
+    return out, eng, grids
+
+
+def test_sharded_round_on_the_card_matches_the_cpu(cuda):
+    """The sharded engine on a (data 2, model 2) mesh that repeats the card,
+    against the same mesh of the CPU: the same bits from every op, every
+    block on its slot's device, one launch per block per op and two
+    gathers (decrypt and the ingest's hand-off)."""
+    rng = np.random.RandomState(9)
+    n, b = 1024, 5
+    draws = {"s": rng.randint(-1, 2, n), "e": np.rint(3.2 * rng.randn(n)),
+             "u": rng.randint(-1, 2, (b, n)),
+             "e0": np.rint(3.2 * rng.randn(b, n)),
+             "e1": np.rint(3.2 * rng.randn(b, n))}
+    vals = rng.randn(b, n // 2).astype(np.float32)
+    plain = rng.randn(301).astype(np.float32)
+    a = np.stack([rng.randint(0, q, n) for q in params.find_ntt_primes(
+        n, 2)]).astype(np.int32)
+    out, counts = [], []
+    for dev in (cuda, torch.device("cpu")):
+        ctx = params.make_test_context(n_poly=n, n_limbs=2, device=dev)
+        mesh = tmesh.make_he_mesh(2, devices=[dev] * 4)
+        assert mesh.shape == {"data": 2, "model": 2}
+        ops.reset_launch_counts()
+        res, eng, grids = _sharded_round(ctx, mesh, draws, a, vals, plain)
+        counts.append(ops.launch_counts())
+        assert all(g.on_slot_devices() for g in grids)
+        assert eng.gathers == 2
+        out.append(res)
+    for got, want in zip(*out):
+        assert torch.equal(got, want)
+    assert counts[0] == {"ntt_fwd": 4 * 2 + 4 * 4 + 4 * 2, "ntt_inv": 4,
+                      "mul_add": 4 * 2 + 4 + 4, "weighted_sum": 8,
+                      "weighted_accum": 8, "weighted_accum_chunks": 8,
+                      "mod_lift": 0}
+
+
 def test_wrappers_raise_on_what_they_do_not_take(cuda):
     ctx = params.make_test_context(n_poly=256, n_limbs=2, device=cuda)
     t = ctx.device_tables
@@ -280,3 +387,9 @@ def test_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="w_mont"):
         he_agg.he_weighted_sum_fused(torch.stack([x, x]), t.qs[None],
                                      t.qs, t.qinv_negs)
+    with pytest.raises(ValueError, match="trailing broadcast"):
+        he_agg.he_weighted_accum_fused(x[:, :1].contiguous(), x, t.qs, t.qs,
+                                       t.qinv_negs)
+    with pytest.raises(ValueError, match="contiguous"):
+        he_agg.he_weighted_accum_fused(x[0].expand(x.shape), x, t.qs, t.qs,
+                                       t.qinv_negs)

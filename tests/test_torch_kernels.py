@@ -1,11 +1,11 @@
 """The port's kernels and their plain versions against the JAX package.
 
 For each kernel of the port (ntt_fwd, ntt_inv, mul_add, weighted_sum, the
-streaming flush weighted_accum_chunks and the transcipher's mod_lift) the
-port's plain PyTorch version
-must equal, bit for bit, both the JAX package's `ref` op and its Pallas
-kernel run in interpret mode, on the same numpy-seeded inputs at N in
-{256, 1024}, L=2.  The NTT
+sharded fold weighted_accum, the streaming flush weighted_accum_chunks and
+the transcipher's mod_lift) the port's plain PyTorch version must equal,
+bit for bit, both the JAX package's `ref` op and its Pallas kernel run in
+interpret mode, on the same numpy-seeded inputs at N in {256, 1024}, L=2
+(weighted_accum: N=256, L in {1, 2, 3}).  The NTT
 gold vectors that do not depend on the JAX PRNG are reproduced too, and the
 CUDA kernels' arithmetic header is compiled with g++ and held against the
 JAX package's 16-bit-split Montgomery product.  The CUDA kernels themselves
@@ -27,6 +27,7 @@ from repro.core.ckks import params as jparams
 from repro.kernels import he_agg as jhe_agg
 from repro.kernels import lift as jlift
 from repro.kernels import ntt as jntt
+from repro.kernels import ops as jops
 from repro.kernels import pointwise as jpointwise
 from repro.kernels import ref as jref
 
@@ -222,6 +223,43 @@ def test_weighted_accum_chunks_in_ciphertext_layout(n):
     _assert_same(tacc, np.moveaxis(np.asarray(want), -2, -3))
 
 
+@pytest.mark.parametrize("l", [1, 2, 3])
+def test_weighted_accum_matches_jax(l):
+    """The fold acc + w (*) ct with one weight per limb over 5 rows of
+    [2, L, N]: the plain version equals the JAX package's Pallas kernel
+    (interpret) and its ops.weighted_accum on the ref backend, with acc of
+    ct's shape and broadcast (one row, with and without its leading 1); in
+    the ciphertext layout (limb_axis=-3) and folded in place (out=acc)."""
+    n = 256
+    jctx = jparams.make_test_context(n_poly=n, n_limbs=l,
+                                     delta_bits=12 if l == 1 else 20)
+    tctx = tparams.make_test_context(n_poly=n, n_limbs=l,
+                                     delta_bits=12 if l == 1 else 20,
+                                     device="cpu")
+    jt, tt = jctx.tables, tctx.device_tables
+    rng = np.random.RandomState(40 + l)
+    acc = jref.rand_limbed_np(rng, jctx, (5, 2))               # [B, 2, L, N]
+    ct = jref.rand_limbed_np(rng, jctx, (5, 2))
+    w = np.asarray([rng.randint(0, q) for q in jctx.primes], np.uint32)
+    for a in (acc, acc[:1], acc[0]):
+        port = ref.he_weighted_accum_fused(_t(a), _t(ct), _t(w), tt.qs,
+                                           tt.qinv_negs)
+        _assert_same(port,
+                     jhe_agg.he_weighted_accum_fused(a, ct, w, jt.qs,
+                                                     jt.qinv_negs,
+                                                     interpret=True),
+                     jops.weighted_accum(a, ct, w, jctx))
+        assert torch.equal(ops.weighted_accum(_t(a), _t(ct), _t(w), tctx),
+                           port)
+    want = jops.weighted_accum(acc, ct, w, jctx)
+    tacc = _t(np.ascontiguousarray(np.moveaxis(acc, -2, -3)))
+    out = ops.weighted_accum(
+        tacc, _t(np.ascontiguousarray(np.moveaxis(ct, -2, -3))), _t(w), tctx,
+        limb_axis=-3, out=tacc)
+    assert out is tacc
+    _assert_same(tacc, np.moveaxis(np.asarray(want), -2, -3))
+
+
 @pytest.mark.parametrize("l", [2, 3])
 @pytest.mark.parametrize("n", NS)
 def test_mod_lift_matches_jax(n, l):
@@ -269,18 +307,19 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.mul_add(ops.ntt_inv(ops.ntt_fwd(x, tctx), tctx), x, x, tctx)
     ops.weighted_sum(torch.stack([x, x]), torch.ones(2, 2, dtype=torch.int32),
                      tctx)
+    ops.weighted_accum(x, x, torch.ones(2, dtype=torch.int32), tctx)
     ops.weighted_accum_chunks(x, x, torch.ones(2, 2, dtype=torch.int32),
                               tctx)
     ops.mod_lift(x[:, 0], 2, tctx)
     assert ops.launch_counts() == {"ntt_fwd": 0, "ntt_inv": 0, "mul_add": 0,
-                                   "weighted_sum": 0,
+                                   "weighted_sum": 0, "weighted_accum": 0,
                                    "weighted_accum_chunks": 0,
                                    "mod_lift": 0}
 
 
 @pytest.mark.parametrize("op", ["ntt_fwd", "ntt_inv", "mul_add",
-                                "weighted_sum", "weighted_accum_chunks",
-                                "mod_lift"])
+                                "weighted_sum", "weighted_accum",
+                                "weighted_accum_chunks", "mod_lift"])
 def test_wrappers_refuse_tensors_neither_cpu_nor_cuda(op):
     """A non-CPU tensor goes to the kernel or raises; it never runs the
     plain version.  (`meta` stands in for a device without a kernel.)"""
@@ -295,6 +334,8 @@ def test_wrappers_refuse_tensors_neither_cpu_nor_cuda(op):
                               t.qinv_negs)
         elif op == "mul_add":
             pointwise.mul_add_fused(x, x, x, t.qs, t.qinv_negs)
+        elif op == "weighted_accum":
+            he_agg.he_weighted_accum_fused(x, x, t.qs, t.qs, t.qinv_negs)
         elif op == "weighted_accum_chunks":
             he_agg.he_weighted_accum_chunks_fused(x, x, x[:, :, 0], t.qs,
                                                   t.qinv_negs)
