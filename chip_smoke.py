@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed S]
 
-Five phases; any failure exits non-zero, and without CUDA the script exits
-non-zero before doing anything:
+Phases 1-6 and two between them (2b, 3b); any failure exits non-zero, and
+without CUDA the script exits non-zero before doing anything:
 
 1. build: nvcc builds every kernel under src/repro_torch/kernels/csrc/ for
    sm_90a (one nvcc per source, started together);
@@ -15,12 +15,22 @@ non-zero before doing anything:
    card is held bit for bit against the same draws on the CPU: keygen,
    public-key and seeded encrypt, `a` expansion for both derive ids,
    weighted_sum, rescale, decrypt, a StreamIngest of two small packed
-   blobs, and a transcipher provision, mask and ingest;
+   blobs, and a transcipher provision, mask and ingest.  The 4-step NTT
+   kernels run at all 18 (split, radix, block_b) configurations, each exact
+   against the flat kernel's output and timed;
+2b. tuner sweep: kernels/tune.py's sweep_op for ntt_fwd and ntt_inv at
+   every (N, L, B) the in-memory round dispatches its NTTs at; the cache is
+   saved to a temporary file, cleared, reloaded and cleared again, so
+   phases 3-6 run with an empty cache (the flat NTT kernels);
 3. in-memory round: the paper's Algorithm 1 round at full width --
    make_context() (N=8192, L=2, delta=2^26), keygen, three clients'
    Qwen1.5-0.5B-sized updates (463,987,712 float32 parameters, top 10%
    encrypted in 11,328 ciphertexts each) through client_protect,
    server_aggregate and client_recover_params;
+3b. 4-step round: phase 3 again with a tuning cache that puts the sweep's
+   best 4-step configuration at each of those NTT shapes, so every NTT of
+   the round runs the ntt4 kernels; keys, ciphertexts, the aggregate and
+   the recovered parameters must equal phase 3's bit for bit;
 4. wire round: the same clients, keys and mask over the wire (the
    quickstart's step 5) -- client_protect_seeded, seed_compress and
    pack_update_frames with an f16 plain segment, a BandwidthLedger of every
@@ -47,8 +57,8 @@ non-zero before doing anything:
    lie on its slot's device, and the engine must gather exactly twice
    (decrypt and the ingest's hand-off).
 
-Phases 3, 4, 5 and 6 each run with the launch counters set to 0 just before
-and read just after, under torch.profiler (device busy share, time by
+Phases 3, 3b, 4, 5 and 6 each run with the launch counters set to 0 just
+before and read just after, under torch.profiler (device busy share, time by
 kernel).
 Each must recover the plaintext FedAvg within 1e-2 (the quickstart's
 bound) with exactly its expected launch counts; the wire round must also
@@ -66,6 +76,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -81,7 +92,7 @@ from repro_torch.core.ckks import (  # noqa: E402
 from repro_torch.core.secure_agg import (  # noqa: E402
     AggregatorConfig, ProtectedUpdate, SelectiveHEAggregator)
 from repro_torch.kernels import (  # noqa: E402
-    build, he_agg, lift, ntt, ops, pointwise, ref)
+    build, he_agg, lift, ntt, ops, pointwise, ref, tune)
 from repro_torch.launch import fl_step, mesh as he_mesh  # noqa: E402
 from repro_torch.wire import budget, compress, format as wf  # noqa: E402
 from repro_torch.wire import stream  # noqa: E402
@@ -115,21 +126,32 @@ P_RATIO = 0.1
 # its four: keygen (2 ntt_fwd), server_aggregate and the fl_step step (one
 # weighted_sum each), the three-client fold (3 weighted_accum), one seeded
 # encrypt (2 ntt_fwd, 1 mul_add), one accumulate per ingested blob, and
-# decrypt (mul_add, ntt_inv)
+# decrypt (mul_add, ntt_inv).  With an empty tuning cache no path launches
+# the 4-step kernels; the 4-step round is the in-memory round with every
+# NTT resolved to them.
 EXPECTED_LAUNCHES = {
-    "in_memory": {"ntt_fwd": 14, "ntt_inv": 1, "mul_add": 7,
-                  "weighted_sum": 1, "weighted_accum": 0,
+    "in_memory": {"ntt_fwd": 14, "ntt_inv": 1, "ntt4_fwd": 0, "ntt4_inv": 0,
+                  "mul_add": 7, "weighted_sum": 1, "weighted_accum": 0,
                   "weighted_accum_chunks": 0, "mod_lift": 0},
-    "wire": {"ntt_fwd": 6, "ntt_inv": 1, "mul_add": 4, "weighted_sum": 0,
-             "weighted_accum": 0, "weighted_accum_chunks": 3,
-             "mod_lift": 0},
-    "transcipher": {"ntt_fwd": 12, "ntt_inv": 1, "mul_add": 7,
-                    "weighted_sum": 0, "weighted_accum": 0,
-                    "weighted_accum_chunks": 3, "mod_lift": 6},
-    "sharded": {"ntt_fwd": 16, "ntt_inv": 4, "mul_add": 8,
-                "weighted_sum": 8, "weighted_accum": 12,
+    "ntt4_round": {"ntt_fwd": 0, "ntt_inv": 0, "ntt4_fwd": 14, "ntt4_inv": 1,
+                   "mul_add": 7, "weighted_sum": 1, "weighted_accum": 0,
+                   "weighted_accum_chunks": 0, "mod_lift": 0},
+    "wire": {"ntt_fwd": 6, "ntt_inv": 1, "ntt4_fwd": 0, "ntt4_inv": 0,
+             "mul_add": 4, "weighted_sum": 0, "weighted_accum": 0,
+             "weighted_accum_chunks": 3, "mod_lift": 0},
+    "transcipher": {"ntt_fwd": 12, "ntt_inv": 1, "ntt4_fwd": 0,
+                    "ntt4_inv": 0, "mul_add": 7, "weighted_sum": 0,
+                    "weighted_accum": 0, "weighted_accum_chunks": 3,
+                    "mod_lift": 6},
+    "sharded": {"ntt_fwd": 16, "ntt_inv": 4, "ntt4_fwd": 0, "ntt4_inv": 0,
+                "mul_add": 8, "weighted_sum": 8, "weighted_accum": 12,
                 "weighted_accum_chunks": 12, "mod_lift": 0},
 }
+# the NTT dispatches of the in-memory round, (op, B) at N=8192, L=2, read
+# off core/ckks/cipher.py: keygen's s and e are [L, N] (B = 1), each
+# encrypt's m, u, e0, e1 and the decrypt's phase are [11328, L, N]
+ROUND_NTT_SHAPES = (("ntt_fwd", 1), ("ntt_fwd", "rows"), ("ntt_inv", "rows"))
+N_NTT4_CONFIGS = 18    # 3 splits x radix {2, 4} x block_b {1, 2, 4}
 MESH_SLOTS = 4         # the sharded round's mesh: data 2 x model 2 at L = 2
 EXPECTED_GATHERS = 2   # decrypt's gather of limb shards, finalize's hand-off
 MAX_ERR = 1e-2
@@ -151,6 +173,10 @@ KERNELS = {
                 "src/repro/kernels/ntt.py:46"),
     "ntt_inv": ("src/repro_torch/kernels/csrc/ntt.cu",
                 "src/repro/kernels/ntt.py:66"),
+    "ntt4_fwd": ("src/repro_torch/kernels/csrc/ntt4.cu",
+                 "src/repro/kernels/ntt.py:213"),
+    "ntt4_inv": ("src/repro_torch/kernels/csrc/ntt4.cu",
+                 "src/repro/kernels/ntt.py:228"),
     "mul_add": ("src/repro_torch/kernels/csrc/pointwise.cu",
                 "src/repro/kernels/pointwise.py:26"),
     "weighted_sum": ("src/repro_torch/kernels/csrc/he_agg.cu",
@@ -220,6 +246,7 @@ def check_kernels(ctx, gen, n_rows):
     t = ctx.device_tables
     l, n = ctx.n_limbs, ctx.n_poly
     log_n = n.bit_length() - 1
+    n1, n2 = params.ntt4_split(n)
 
     def uniform(shape):
         return cipher.sample_uniform(gen, shape, ctx)
@@ -262,6 +289,24 @@ def check_kernels(ctx, gen, n_rows):
                                       t.qs, t.qinv_negs),
             x.shape, 4 * (2 * elems + l * n + 3 * l),
             ntt_muls + MULS_PER_MONT * elems),
+        # the default split (64 x 128 at N=8192), radix 2, block_b 1; bytes:
+        # x and out once each, the psi1, psi2 and corr tables once
+        "ntt4_fwd": (
+            lambda: ntt.ntt4_fwd_fused(x, t.ntt4_psi1_mont, t.ntt4_psi2_mont,
+                                       t.ntt4_corr_mont, t.qs, t.qinv_negs),
+            lambda: ref.ntt4_fwd_fused(x, t.ntt4_psi1_mont, t.ntt4_psi2_mont,
+                                       t.ntt4_corr_mont, t.qs, t.qinv_negs),
+            x.shape, 4 * (2 * elems + l * (n1 + n2 + n) + 2 * l),
+            ntt_muls + MULS_PER_MONT * elems),
+        "ntt4_inv": (
+            lambda: ntt.ntt4_inv_fused(
+                x, t.ntt4_psi1_inv_mont, t.ntt4_psi2_inv_mont,
+                t.ntt4_corr_inv_mont, t.n_inv_monts, t.qs, t.qinv_negs),
+            lambda: ref.ntt4_inv_fused(
+                x, t.ntt4_psi1_inv_mont, t.ntt4_psi2_inv_mont,
+                t.ntt4_corr_inv_mont, t.n_inv_monts, t.qs, t.qinv_negs),
+            x.shape, 4 * (2 * elems + l * (n1 + n2 + n) + 3 * l),
+            ntt_muls + 2 * MULS_PER_MONT * elems),
         "mul_add": (
             lambda: pointwise.mul_add_fused(x, y, z, t.qs, t.qinv_negs),
             lambda: ref.mul_add_fused(x, y, z, t.qs, t.qinv_negs),
@@ -329,8 +374,52 @@ def check_kernels(ctx, gen, n_rows):
             f"{nbytes / 1e9:.3f} GB, {nops / 1e9:.3f} G int ops)  "
             f"library call: {lib}")
     check_accum_variants(acc, cts[0], w_one, t)
+    check_ntt4_configs(ctx, x, rows)
     log("kernels: " + ", ".join(rows))
     return rows
+
+
+def check_ntt4_configs(ctx, x, rows):
+    """Both 4-step kernels at every (split, radix, block_b) the tuner sweeps
+    at x's shape, each exact against the flat kernel's output on x and
+    timed with CUDA events over 10 launches; the fastest is added to its
+    kernel's row as best_ms / best_config."""
+    t = ctx.device_tables
+    n_rows = x.shape[0]
+    flat = {"ntt_fwd": ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs,
+                                         t.qinv_negs),
+            "ntt_inv": ntt.ntt_inv_fused(x, t.psi_inv_rev_mont,
+                                         t.n_inv_monts, t.qs, t.qinv_negs)}
+    for op, name in (("ntt_fwd", "ntt4_fwd"), ("ntt_inv", "ntt4_inv")):
+        configs = [c.config for c in tune.candidates(op, ctx.n_poly,
+                                                     ctx.n_limbs, n_rows)
+                   if c.backend == "ntt4"]
+        if len(configs) != N_NTT4_CONFIGS:
+            raise AssertionError(f"{name}: {len(configs)} configurations, "
+                                 f"expected {N_NTT4_CONFIGS}")
+        times = {}
+        for cfg in configs:
+            tables = ctx.split_device_tables(cfg.ntt4_split)
+
+            def run(cfg=cfg, tables=tables):
+                return ops.run_config(op, "ntt4", cfg, tables, x)
+
+            got = run()
+            torch.cuda.synchronize()
+            if not torch.equal(got, flat[op]):
+                raise AssertionError(f"{name} {cfg} differs from the flat "
+                                     "kernel's output")
+            del got
+            times[cfg] = time_ms(run, 10)
+            log(f"kernel {name} {cfg.ntt4_split[0]}x{cfg.ntt4_split[1]} "
+                f"radix {cfg.radix} block_b {cfg.block_b}: exact against "
+                f"the flat kernel, ms={times[cfg]:.4f}")
+        best = min(times, key=times.get)
+        rows[name]["best_ms"] = times[best]
+        rows[name]["best_config"] = best.to_json()
+        log(f"kernel {name}: all {len(configs)} configurations exact; "
+            f"default {rows[name]['ms']:.4f} ms, best {times[best]:.4f} ms "
+            f"at {best.to_json()}, bound {rows[name]['bound_ms']:.4f} ms")
 
 
 def check_accum_variants(acc, ct, w, t):
@@ -533,9 +622,9 @@ def report_times(what, times, t0):
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def in_memory_round(seed):
+def in_memory_round(seed, what="in_memory"):
     """The Algorithm 1 round at Qwen1.5-0.5B width; returns its launch
-    counts and the state the wire round reuses."""
+    counts and the state the later phases reuse."""
     sync = torch.cuda.synchronize
     times = {}
     torch.cuda.reset_peak_memory_stats()
@@ -561,7 +650,7 @@ def in_memory_round(seed):
     if rep["n_total"] != N_PARAMS or rep["n_ciphertexts"] != \
             n_ciphertexts(ctx.slots):
         raise AssertionError(f"unexpected partition: {rep}")
-    log(f"in_memory: {rep['n_enc']}/{rep['n_total']} parameters encrypted "
+    log(f"{what}: {rep['n_enc']}/{rep['n_total']} parameters encrypted "
         f"in {rep['n_ciphertexts']} ciphertexts per client")
 
     updates, expect = [], 0
@@ -590,15 +679,101 @@ def in_memory_round(seed):
     sync()
     times["client_recover_params"] = time.perf_counter() - t
     counts = ops.launch_counts()
-    report_times("in_memory", times, t0)
+    report_times(what, times, t0)
     expect = expect / N_CLIENTS           # plaintext FedAvg, flat
-    check_recovered("in_memory", recovered, expect)
-    check_launches("in_memory", counts)
-    # the sharded round (phase 6) aggregates the same updates
+    check_recovered(what, recovered, expect)
+    check_launches(what, counts)
+    # the sharded round (phase 6) aggregates the same updates; the 4-step
+    # round is held against all of it
     return counts, {"ctx": ctx, "sk": sk, "pk": pk, "agg": agg,
                     "model": model, "expect": expect,
                     "n_rows": rep["n_ciphertexts"], "updates": updates,
-                    "aggregate": glob}
+                    "aggregate": glob, "recovered": flat_leaves(recovered)}
+
+
+# ---------------------------------------------------------------------------
+# phase 2b: the tuner's sweep; phase 3b: the round on the 4-step kernels
+# ---------------------------------------------------------------------------
+
+
+def tuner_sweep(seed):
+    """sweep_op at each NTT shape of the in-memory round; checks the cache's
+    save / clear / load round trip and leaves the cache empty.  Returns
+    {(op, B): the fastest 4-step KernelConfig}."""
+    ctx = params.make_context()
+    gen = torch.Generator(device=ctx.device).manual_seed(seed + 5)
+    rows = n_ciphertexts(ctx.slots)
+    tune.clear_cache()
+    best4, winners = {}, {}
+    t0 = time.perf_counter()
+    for op, b in ROUND_NTT_SHAPES:
+        b = rows if b == "rows" else b
+        res = tune.sweep_op(op, ctx, b, gen, reps=10)
+        if not res.tuned_ms <= res.default_ms:
+            raise AssertionError(f"sweep {op} B={b}: tuned {res.tuned_ms} "
+                                 f"ms > default {res.default_ms} ms")
+        ntt4 = {c: ms for c, ms in res.times_ms.items()
+                if c.backend == "ntt4"}
+        if not ntt4:
+            raise AssertionError(f"sweep {op} B={b}: no 4-step candidate "
+                                 "was measured")
+        best4[(op, b)] = min(ntt4, key=ntt4.get).config
+        winners[(op, b)] = (res.winner.backend, res.winner.config)
+        log(f"sweep {json.dumps(res.to_row())}")
+        log(f"sweep {op} B={b}: best 4-step {best4[(op, b)].to_json()} at "
+            f"{min(ntt4.values()):.4f} ms")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "tune_cache.json")
+        tune.save_cache(path)
+        tune.clear_cache()
+        if tune.n_entries() != 0:
+            raise AssertionError("clear_cache left entries")
+        loaded = tune.load_cache(path)
+    if loaded != len(ROUND_NTT_SHAPES):
+        raise AssertionError(f"the saved cache reloads {loaded} entries, "
+                             f"expected {len(ROUND_NTT_SHAPES)}")
+    for (op, b), want in winners.items():
+        got = tune.resolve(op, ctx.n_poly, ctx.n_limbs, b, ctx.device.type)
+        if got != want:
+            raise AssertionError(f"reloaded cache resolves {op} B={b} to "
+                                 f"{got}, the sweep chose {want}")
+    tune.clear_cache()
+    log(f"sweep: {len(ROUND_NTT_SHAPES)} points, cache saved, cleared and "
+        f"reloaded with {loaded} entries, then cleared; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return best4
+
+
+def ntt4_round(seed, state, best4):
+    """Phase 3 again with every NTT shape resolved to its best 4-step
+    configuration; returns its launch counts.  Everything it makes must
+    equal phase 3's bit for bit."""
+    ctx = state["ctx"]
+    for (op, b), cfg in best4.items():
+        tune.put(op, ctx.n_poly, ctx.n_limbs, b, ctx.device.type, "ntt4",
+                 cfg)
+    try:
+        with traced("ntt4_round"):
+            counts, got = in_memory_round(seed, "ntt4_round")
+    finally:
+        tune.clear_cache()
+    pairs = {f"sk {k}": (got["sk"][k], state["sk"][k]) for k in state["sk"]}
+    pairs.update({f"pk {k}": (got["pk"][k], state["pk"][k])
+                  for k in state["pk"]})
+    for i, (u, v) in enumerate(zip(got["updates"], state["updates"])):
+        pairs[f"client {i} ciphertexts"] = (u.ct.data, v.ct.data)
+        pairs[f"client {i} plain"] = (u.plain, v.plain)
+    pairs["aggregate"] = (got["aggregate"].ct.data,
+                          state["aggregate"].ct.data)
+    pairs["aggregate plain"] = (got["aggregate"].plain,
+                                state["aggregate"].plain)
+    pairs["recovered parameters"] = (got["recovered"], state["recovered"])
+    for what, (a, b) in pairs.items():
+        if not torch.equal(a, b):
+            raise AssertionError(f"ntt4_round: {what} differ from phase "
+                                 "3's")
+    log(f"ntt4_round: {', '.join(pairs)} equal phase 3's bit for bit")
+    return counts
 
 
 def uplink_blob_bytes(n_rows, n_limbs, n_poly, n_plain):
@@ -1029,9 +1204,15 @@ def main():
     del ctx, gen
     torch.cuda.empty_cache()
 
+    best4 = tuner_sweep(args.seed)
+    torch.cuda.empty_cache()
+
     by_path = {}
     with traced("in_memory"):
         by_path["in_memory"], state = in_memory_round(args.seed)
+    by_path["ntt4_round"] = ntt4_round(args.seed, state, best4)
+    del state["recovered"]
+    torch.cuda.empty_cache()
     with traced("wire"):
         by_path["wire"] = wire_round(args.seed, state)
     torch.cuda.empty_cache()

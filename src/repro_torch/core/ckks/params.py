@@ -3,8 +3,9 @@
 A numpy copy of the JAX package's parameter generation: the same NTT-friendly
 primes (q == 1 mod 2N, q < 2**30), the same Montgomery constants (R = 2**32)
 and the same Longa-Naehrig bit-reversed twiddle tables, so every table is
-equal to the reference's bit for bit.  The 4-step NTT tables are not built:
-no kernel of this package reads them yet.
+equal to the reference's bit for bit, the 4-step NTT's tables included (at
+the default split on `LimbTables`, at any other split through
+`ntt4_variant_tables`).
 
 Tables are built on the host once per context.  `CkksContext.device_tables`
 holds the same tables as torch tensors on the context's device.  Residues and
@@ -119,6 +120,27 @@ def bit_reverse(x: int, bits: int) -> int:
     return out
 
 
+def ntt4_split(n_poly: int) -> tuple[int, int]:
+    """Default factorization N = n1 * n2 of the 4-step NTT: powers of two,
+    n1 <= n2, as close to sqrt(N) as possible (64 x 128 at N=8192)."""
+    k = (n_poly.bit_length() - 1) // 2
+    return 1 << k, n_poly >> k
+
+
+def ntt4_split_candidates(n_poly: int) -> tuple[tuple[int, int], ...]:
+    """The splits the autotuner sweeps: the default and its two neighbours
+    (32x256 / 64x128 / 128x64 at N=8192), both lengths >= 2."""
+    logn = n_poly.bit_length() - 1
+    mid = logn // 2
+    out = []
+    for k in (mid - 1, mid, mid + 1):
+        if 1 <= k <= logn - 1:
+            pair = (1 << k, n_poly >> k)
+            if pair not in out:
+                out.append(pair)
+    return tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # per-prime (limb) Montgomery + NTT tables
 # ---------------------------------------------------------------------------
@@ -135,6 +157,13 @@ class LimbContext:
     psi_rev_mont: np.ndarray      # [N] u32, psi^bitrev(i) * R mod q
     psi_inv_rev_mont: np.ndarray  # [N] u32
     n_inv_mont: np.ndarray        # scalar u32 array, N^{-1} * R mod q
+    # 4-step NTT tables at the default split N = n1 * n2
+    ntt4_psi1_mont: np.ndarray      # [n1] u32, LN table of mu = psi^n2
+    ntt4_psi1_inv_mont: np.ndarray  # [n1] u32
+    ntt4_psi2_mont: np.ndarray      # [n2] u32, LN table of chi = psi^n1
+    ntt4_psi2_inv_mont: np.ndarray  # [n2] u32
+    ntt4_corr_mont: np.ndarray      # [N] u32, [bitrev(k1)][j2] correction
+    ntt4_corr_inv_mont: np.ndarray  # [N] u32
 
 
 @functools.lru_cache(maxsize=64)
@@ -155,6 +184,7 @@ def make_limb_context(q: int, n_poly: int) -> LimbContext:
         j = bit_reverse(i, logn)
         psi_rev[i] = pow(psi, j, q) * r % q
         psi_inv_rev[i] = pow(psi_inv, j, q) * r % q
+    ntt4 = _ntt4_limb_tables(q, n_poly, *ntt4_split(n_poly))
     return LimbContext(
         q=q,
         qinv_neg=qinv_neg,
@@ -163,7 +193,50 @@ def make_limb_context(q: int, n_poly: int) -> LimbContext:
         psi_rev_mont=psi_rev,
         psi_inv_rev_mont=psi_inv_rev,
         n_inv_mont=np.asarray(pow(n_poly, -1, q) * r % q, dtype=np.uint32),
+        **dict(zip(NTT4_FIELDS, ntt4)),
     )
+
+
+NTT4_FIELDS = ("ntt4_psi1_mont", "ntt4_psi1_inv_mont", "ntt4_psi2_mont",
+               "ntt4_psi2_inv_mont", "ntt4_corr_mont", "ntt4_corr_inv_mont")
+
+
+@functools.lru_cache(maxsize=256)
+def _ntt4_limb_tables(q: int, n_poly: int, n1: int, n2: int) -> tuple:
+    """4-step NTT tables of one limb at any split N = n1 * n2 (n1 > n2
+    too).
+
+    With x[j] = x[j2 + n2*j1] the negacyclic NTT factors into a length-n1
+    LN NTT over j1 with mu = psi^n2, an elementwise correction
+    psi^(j2*(2*k1+1-n1)) at row bitrev(k1), and a length-n2 LN NTT over j2
+    with chi = psi^n1.  Sub-tables are LN bit-reversed Montgomery, like
+    psi_rev_mont.  Returns the NTT4_FIELDS in order."""
+    if n1 * n2 != n_poly or n1 < 2 or n2 < 2:
+        raise ValueError(f"bad 4-step split {n1} x {n2} of N={n_poly}")
+    r = 1 << 32
+    psi = root_of_unity(q, 2 * n_poly)
+    k_bits, r_bits = n1.bit_length() - 1, n2.bit_length() - 1
+
+    def lnt(root, length, bits):
+        return np.asarray([pow(root, bit_reverse(i, bits), q) * r % q
+                           for i in range(length)], dtype=np.uint32)
+
+    mu, chi = pow(psi, n2, q), pow(psi, n1, q)
+    corr = np.zeros((n1, n2), dtype=np.uint32)
+    corr_inv = np.zeros((n1, n2), dtype=np.uint32)
+    for k1 in range(n1):
+        w = pow(psi, (2 * k1 + 1 - n1) % (2 * n_poly), q)
+        w_inv = pow(w, -1, q)
+        row = bit_reverse(k1, k_bits)
+        c = ci = 1
+        for j2 in range(n2):
+            corr[row, j2] = c * r % q
+            corr_inv[row, j2] = ci * r % q
+            c = c * w % q
+            ci = ci * w_inv % q
+    return (lnt(mu, n1, k_bits), lnt(pow(mu, -1, q), n1, k_bits),
+            lnt(chi, n2, r_bits), lnt(pow(chi, -1, q), n2, r_bits),
+            corr.reshape(-1), corr_inv.reshape(-1))
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +260,14 @@ class LimbTables:
     n_inv_monts: object       # [L] N^{-1} * R mod q
     psi_rev_mont: object      # [L, N] forward twiddles (Montgomery)
     psi_inv_rev_mont: object  # [L, N] inverse twiddles (Montgomery)
+    # 4-step NTT tables, limb axis leading like the rest, so `slice`,
+    # `take` and `to` carry them
+    ntt4_psi1_mont: object      # [L, n1]
+    ntt4_psi1_inv_mont: object  # [L, n1]
+    ntt4_psi2_mont: object      # [L, n2]
+    ntt4_psi2_inv_mont: object  # [L, n2]
+    ntt4_corr_mont: object      # [L, N]
+    ntt4_corr_inv_mont: object  # [L, N]
 
     @property
     def n_limbs(self) -> int:
@@ -211,11 +292,14 @@ class LimbTables:
 
     def to(self, device) -> "LimbTables":
         """Host tables -> torch int32 tensors (same bits) on `device`."""
-        return LimbTables(**{
-            f.name: torch.from_numpy(
-                np.ascontiguousarray(getattr(self, f.name)).view(np.int32)
-            ).to(device, copy=True)
-            for f in dataclasses.fields(self)})
+        return LimbTables(**{f.name: _tensor(getattr(self, f.name), device)
+                             for f in dataclasses.fields(self)})
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """u32 numpy array -> int32 tensor with the same bits on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(
+        device, copy=True)
 
 
 def _stack_limb_tables(limbs: "tuple[LimbContext, ...]") -> LimbTables:
@@ -225,10 +309,31 @@ def _stack_limb_tables(limbs: "tuple[LimbContext, ...]") -> LimbTables:
     return LimbTables(
         qs=col("q"), qinv_negs=col("qinv_neg"), r2s=col("r2"),
         one_monts=col("one_mont"), n_inv_monts=col("n_inv_mont"),
-        psi_rev_mont=np.stack([lc.psi_rev_mont for lc in limbs], axis=0),
-        psi_inv_rev_mont=np.stack([lc.psi_inv_rev_mont for lc in limbs],
-                                  axis=0),
+        **{name: np.stack([getattr(lc, name) for lc in limbs], axis=0)
+           for name in ("psi_rev_mont", "psi_inv_rev_mont") + NTT4_FIELDS},
     )
+
+
+@functools.lru_cache(maxsize=64)
+def ntt4_variant_tables(primes: tuple, n_poly: int, n1: int,
+                        n2: int) -> dict:
+    """The six stacked u32[L, .] 4-step tables at split n1 x n2, by
+    LimbTables field name (what the autotuner's split sweep needs)."""
+    per_limb = [_ntt4_limb_tables(int(q), n_poly, n1, n2) for q in primes]
+    return {name: np.stack([t[i] for t in per_limb], axis=0)
+            for i, name in enumerate(NTT4_FIELDS)}
+
+
+def retable_ntt4(tables: LimbTables, n1: int, n2: int) -> LimbTables:
+    """Host numpy `tables` with its six ntt4_* fields at the n1 x n2 split;
+    `tables` itself when they are at that split already.  Device tables at
+    a split come from `CkksContext.split_device_tables`, built once per
+    split."""
+    if int(tables.ntt4_psi1_mont.shape[-1]) == n1:
+        return tables
+    n_poly = int(tables.psi_rev_mont.shape[-1])
+    return dataclasses.replace(tables, **ntt4_variant_tables(
+        tuple(int(q) for q in tables.qs), n_poly, n1, n2))
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +394,26 @@ class CkksContext:
     def device_tables(self) -> LimbTables:
         """`tables` as int32 tensors on the context's device."""
         return self.tables.to(self.device)
+
+    @functools.cached_property
+    def _split_tables(self) -> dict:
+        return {}
+
+    def split_device_tables(self, split=None) -> LimbTables:
+        """`device_tables` with the 4-step tables at `split` (n1, n2);
+        None or the default split is `device_tables` itself.  Built once
+        per split and context."""
+        if split is None or tuple(split) == ntt4_split(self.n_poly):
+            return self.device_tables
+        n1, n2 = split
+        t = self._split_tables.get((n1, n2))
+        if t is None:
+            t = self._split_tables[(n1, n2)] = dataclasses.replace(
+                self.device_tables, **{
+                    k: _tensor(v, self.device) for k, v in
+                    ntt4_variant_tables(self.primes, self.n_poly, n1,
+                                        n2).items()})
+        return t
 
     def limb_range(self, lo: int, hi: int, device=None) -> "CkksContext":
         """The context of limbs [lo, hi) on `device` (default: this one's):

@@ -24,7 +24,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("ntt", "pointwise", "he_agg", "lift")
+SOURCES = ("ntt", "ntt4", "pointwise", "he_agg", "lift")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,6 +36,12 @@ SIGNATURES = {
     "ntt": {
         "ntt_fwd_launch": (_P, _P, _P, _P, _P, _LL, _I, _I, _P),
         "ntt_inv_launch": (_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
+    },
+    "ntt4": {
+        "ntt4_fwd_launch": (_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I,
+                            _I, _P),
+        "ntt4_inv_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                            _I, _I, _P),
     },
     "pointwise": {
         "mul_add_launch": (_P, _P, _LL, _LL, _P, _LL, _LL, _P, _LL, _LL, _P,

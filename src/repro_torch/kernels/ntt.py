@@ -1,9 +1,12 @@
 """Negacyclic NTT / inverse NTT over all RNS limbs, one CUDA launch each.
 
-Wrappers over `csrc/ntt.cu` (which replaces the JAX package's Pallas
-`ntt_fwd_fused` / `ntt_inv_fused`).  On a CUDA tensor a wrapper launches the
-kernel or raises; on a CPU tensor it runs the plain version in `ref.py`.
-Each wrapper counts its kernel launches in its `launches` attribute.
+Wrappers over `csrc/ntt.cu` (the flat kernels, which replace the JAX
+package's Pallas `ntt_fwd_fused` / `ntt_inv_fused`) and `csrc/ntt4.cu` (the
+4-step kernels, which replace `ntt4_fwd_fused` / `ntt4_inv_fused`; N = n1 *
+n2 is read off the tables, and `radix` and `block_b` are launch geometry
+that never changes a bit).  On a CUDA tensor a wrapper launches the kernel
+or raises; on a CPU tensor it runs the plain version in `ref.py`.  Each
+wrapper counts its kernel launches in its `launches` attribute.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
 MAX_LOG_N = 14   # N = 16384 needs 64 KiB of shared memory a block
+MAX_SMEM_BYTES = 232_448   # the most shared memory an H100 block can use
+MAX_BLOCK_B = 8            # ntt4.cu's kMaxBlockB
 
 
 def _check(name, x, tables):
@@ -66,5 +71,82 @@ def ntt_inv_fused(x, psi_inv_rev_mont, n_inv_monts, qs, qinv_negs):
     return out
 
 
+def _check4(name, x, tables, psi1, psi2, radix, block_b):
+    """_check of x and the [L] / [L, N] tables, plus the sub-transform
+    tables psi1 [L, n1] and psi2 [L, n2] with n1 * n2 = N, the radix and
+    block_b; returns (l, log_n, log_n1)."""
+    l, log_n = _check(name, x, tables)
+    n = x.shape[-1]
+    n1, n2 = psi1.shape[-1], psi2.shape[-1]
+    if n1 * n2 != n:
+        raise ValueError(f"{name}: split {n1} x {n2} of the tables does not "
+                         f"give N={n}")
+    for tname, t, cols in (("psi1", psi1, n1), ("psi2", psi2, n2)):
+        _build.check_int32(f"{name} {tname}", t, x.device)
+        if tuple(t.shape) != (l, cols):
+            raise ValueError(f"{name}: table {tname} {tuple(t.shape)} does "
+                             f"not match x {tuple(x.shape)}")
+    log_n1 = _build.log2_exact(n1, f"{name}: n1")
+    _build.log2_exact(n2, f"{name}: n2")
+    if radix not in (2, 4):
+        raise ValueError(f"{name}: radix must be 2 or 4, got {radix}")
+    if not 1 <= block_b <= MAX_BLOCK_B:
+        raise ValueError(f"{name}: block_b must be in [1, {MAX_BLOCK_B}], "
+                         f"got {block_b}")
+    if 4 * n * block_b > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: block_b={block_b} rows of N={n} exceed "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory")
+    return l, log_n, log_n1
+
+
+def ntt4_fwd_fused(x, psi1_mont, psi2_mont, corr_mont, qs, qinv_negs, *,
+                   radix: int = 2, block_b: int = 1):
+    """4-step forward NTT, bit-identical to ntt_fwd_fused: int32[..., L, N]
+    natural order -> bit-reversed.  psi1_mont int32[L, n1], psi2_mont
+    int32[L, n2], corr_mont int32[L, N]; block_b (row, limb) pairs a thread
+    block."""
+    if x.device.type == "cpu":
+        return _ref.ntt4_fwd_fused(x, psi1_mont, psi2_mont, corr_mont, qs,
+                                   qinv_negs, radix)
+    l, log_n, log_n1 = _check4(
+        "ntt4_fwd", x, {"corr_mont": corr_mont, "qs": qs,
+                        "qinv_negs": qinv_negs}, psi1_mont, psi2_mont, radix,
+        block_b)
+    out = torch.empty_like(x)
+    rows = x.numel() >> log_n
+    if rows:
+        _build.launch("ntt4", "ntt4_fwd_launch", out, x, psi1_mont,
+                      psi2_mont, corr_mont, qs, qinv_negs, rows, l, log_n,
+                      log_n1, block_b, radix)
+        ntt4_fwd_fused.launches += 1
+    return out
+
+
+def ntt4_inv_fused(x, psi1_inv_mont, psi2_inv_mont, corr_inv_mont,
+                   n_inv_monts, qs, qinv_negs, *, radix: int = 2,
+                   block_b: int = 1):
+    """4-step inverse NTT, bit-identical to ntt_inv_fused: int32[..., L, N]
+    bit-reversed -> natural order, one combined N^{-1} R scale."""
+    if x.device.type == "cpu":
+        return _ref.ntt4_inv_fused(x, psi1_inv_mont, psi2_inv_mont,
+                                   corr_inv_mont, n_inv_monts, qs, qinv_negs,
+                                   radix)
+    l, log_n, log_n1 = _check4(
+        "ntt4_inv", x, {"corr_inv_mont": corr_inv_mont,
+                        "n_inv_monts": n_inv_monts, "qs": qs,
+                        "qinv_negs": qinv_negs}, psi1_inv_mont,
+        psi2_inv_mont, radix, block_b)
+    out = torch.empty_like(x)
+    rows = x.numel() >> log_n
+    if rows:
+        _build.launch("ntt4", "ntt4_inv_launch", out, x, psi1_inv_mont,
+                      psi2_inv_mont, corr_inv_mont, qs, qinv_negs,
+                      n_inv_monts, rows, l, log_n, log_n1, block_b, radix)
+        ntt4_inv_fused.launches += 1
+    return out
+
+
 ntt_fwd_fused.launches = 0
 ntt_inv_fused.launches = 0
+ntt4_fwd_fused.launches = 0
+ntt4_inv_fused.launches = 0

@@ -10,24 +10,34 @@ The seven ops with a kernel (`ntt_fwd`, `ntt_inv`, `mul_add`,
 `weighted_sum`, `weighted_accum`, `weighted_accum_chunks`, `mod_lift`) go
 to their wrappers, which launch the CUDA kernel for a CUDA tensor and run
 the plain version for a CPU tensor: the device decides,
-there is no backend switch.  The limb-wise helpers (`mod_add`, `mod_sub`,
-`mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of their own
-and are plain torch ops.
+there is no backend switch.  `ntt_fwd` and `ntt_inv` first resolve their
+launch geometry through the tuning cache (`kernels/tune.py`) by the
+dispatch's (op, N, L, B, device type): a miss runs the flat kernel, an
+"ntt4" entry the 4-step kernel at the entry's split, radix and block_b,
+with the same bits either way.  The limb-wise helpers (`mod_add`,
+`mod_sub`, `mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of
+their own and are plain torch ops.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.core.ckks import params as _params
 from repro_torch.kernels import he_agg as _he_agg
 from repro_torch.kernels import lift as _lift
 from repro_torch.kernels import ntt as _ntt
 from repro_torch.kernels import pointwise as _pointwise
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import tune as _tune
 
 # op name -> the wrapper whose `launches` counts its kernel
 KERNELS = {
     "ntt_fwd": _ntt.ntt_fwd_fused,
     "ntt_inv": _ntt.ntt_inv_fused,
+    "ntt4_fwd": _ntt.ntt4_fwd_fused,
+    "ntt4_inv": _ntt.ntt4_inv_fused,
     "mul_add": _pointwise.mul_add_fused,
     "weighted_sum": _he_agg.he_weighted_sum_fused,
     "weighted_accum": _he_agg.he_weighted_accum_fused,
@@ -56,22 +66,79 @@ def _qcol(t):
 
 
 # ---------------------------------------------------------------------------
+# every kernel under an explicit (backend, config): the tuner's entry
+# ---------------------------------------------------------------------------
+
+
+def _ntt_fwd_flat(t, cfg, x):
+    return _ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)
+
+
+def _ntt_fwd_ntt4(t, cfg, x):
+    return _ntt.ntt4_fwd_fused(x, t.ntt4_psi1_mont, t.ntt4_psi2_mont,
+                               t.ntt4_corr_mont, t.qs, t.qinv_negs,
+                               radix=cfg.radix, block_b=cfg.block_b)
+
+
+def _ntt_inv_flat(t, cfg, x):
+    return _ntt.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                              t.qinv_negs)
+
+
+def _ntt_inv_ntt4(t, cfg, x):
+    return _ntt.ntt4_inv_fused(x, t.ntt4_psi1_inv_mont, t.ntt4_psi2_inv_mont,
+                               t.ntt4_corr_inv_mont, t.n_inv_monts, t.qs,
+                               t.qinv_negs, radix=cfg.radix,
+                               block_b=cfg.block_b)
+
+
+_IMPL = {
+    ("ntt_fwd", "flat"): _ntt_fwd_flat,
+    ("ntt_fwd", "ntt4"): _ntt_fwd_ntt4,
+    ("ntt_inv", "flat"): _ntt_inv_flat,
+    ("ntt_inv", "ntt4"): _ntt_inv_ntt4,
+}
+
+
+def run_config(op, backend, cfg, tables, x):
+    """Run one NTT op under an explicit (backend, KernelConfig) on x, with
+    device tables of x's limb count whose 4-step tables are at the
+    config's split (`CkksContext.split_device_tables`): the tuner's
+    measurement entry and the dispatch's."""
+    impl = _IMPL.get((op, backend))
+    if impl is None:
+        raise ValueError(f"{op} has no {backend!r} kernel")
+    if backend == "ntt4":
+        n1 = (cfg.ntt4_split or _params.ntt4_split(x.shape[-1]))[0]
+        if tables.ntt4_psi1_mont.shape[-1] != n1:
+            raise ValueError(f"{op}: tables are not at the split of {cfg}")
+    return impl(tables, cfg, x)
+
+
+# ---------------------------------------------------------------------------
 # ops with a kernel
 # ---------------------------------------------------------------------------
+
+
+def _dispatch_ntt(op, x, ctx):
+    """One NTT dispatch through the tuning cache."""
+    l = x.shape[-2]
+    backend, cfg = _tune.resolve(op, x.shape[-1], l,
+                                 math.prod(x.shape[:-2]), x.device.type)
+    t = ctx.split_device_tables(cfg.ntt4_split if backend == "ntt4"
+                                else None).take(l)
+    return run_config(op, backend, cfg, t, x)
 
 
 def ntt_fwd(x, ctx):
     """Forward negacyclic NTT: int32[..., L, N] natural order ->
     bit-reversed NTT domain, every limb in one launch."""
-    t = _tables(ctx, x.shape[-2])
-    return _ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)
+    return _dispatch_ntt("ntt_fwd", x, ctx)
 
 
 def ntt_inv(x, ctx):
     """Inverse negacyclic NTT: bit-reversed NTT domain -> natural order."""
-    t = _tables(ctx, x.shape[-2])
-    return _ntt.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
-                              t.qinv_negs)
+    return _dispatch_ntt("ntt_inv", x, ctx)
 
 
 def mul_add(x, y_mont, z, ctx):

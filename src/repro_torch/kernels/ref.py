@@ -122,6 +122,142 @@ def ntt_inv_fused(x, psi_inv_rev_mont, n_inv_monts, qs, qinv_negs):
     return x.reshape(batch + (l, n))
 
 
+# ---------------------------------------------------------------------------
+# 4-step NTT: N = n1 * n2, bit-identical to the flat NTT
+# ---------------------------------------------------------------------------
+#
+# With j = j2 + n2*j1 and k = k1 + n1*k2 the negacyclic NTT is a length-n1
+# LN NTT down each column (root psi^n2), an elementwise correction (one
+# Montgomery table), and a length-n2 LN NTT along each row (root psi^n1).
+# Both keep the LN bit-reversed convention, and bitrev(k1 + n1*k2) =
+# bitrev(k1)*n2 + bitrev(k2), so the [bitrev(k1)][bitrev(k2)] result,
+# flattened, is the flat NTT's output.  The steps follow the JAX package's
+# `_ntt4_fwd_body` / `_ntt4_inv_body` one for one.
+
+
+def _ln_fwd_axis1(x, psi, q, qi, radix: int = 2):
+    """LN forward butterflies along the `len` axis of x[b, L, len, spec];
+    psi: [L, len]; q, qi broadcast as [1, L, 1, 1].  The recurrence of the
+    flat forward NTT.  radix=4 fuses each pair of consecutive stages into
+    one pass (a trailing radix-2 stage remains when log2(len) is odd): the
+    same products and sums on the same elements, so the same bits."""
+    b, l, ln, spec = x.shape
+    m, t = 1, ln
+    while m < ln:
+        if radix == 4 and m * 4 <= ln:
+            t //= 4
+            xs = x.reshape(b, l, m, 2, 2, t, spec)
+            s1 = psi[:, m:2 * m][None, :, :, None, None, None]
+            u = xs[:, :, :, 0]                     # [b, L, m, 2, t, spec]
+            v = mont_mul(xs[:, :, :, 1], s1, q[..., None, None],
+                         qi[..., None, None])
+            y0 = mod_add(u, v, q[..., None, None])
+            y1 = mod_sub(u, v, q[..., None, None])
+            s20 = psi[:, 2 * m:4 * m:2][None, :, :, None, None]
+            s21 = psi[:, 2 * m + 1:4 * m:2][None, :, :, None, None]
+            qq, qqi = q[..., None], qi[..., None]
+            v0 = mont_mul(y0[:, :, :, 1], s20, qq, qqi)
+            v1 = mont_mul(y1[:, :, :, 1], s21, qq, qqi)
+            x = torch.stack([mod_add(y0[:, :, :, 0], v0, qq),
+                             mod_sub(y0[:, :, :, 0], v0, qq),
+                             mod_add(y1[:, :, :, 0], v1, qq),
+                             mod_sub(y1[:, :, :, 0], v1, qq)],
+                            dim=3).reshape(b, l, ln, spec)
+            m *= 4
+            continue
+        t //= 2
+        xs = x.reshape(b, l, m, 2, t, spec)
+        u = xs[:, :, :, 0]
+        s = psi[:, m:2 * m][None, :, :, None, None]
+        qq, qqi = q[..., None], qi[..., None]
+        v = mont_mul(xs[:, :, :, 1], s, qq, qqi)
+        x = torch.stack([mod_add(u, v, qq), mod_sub(u, v, qq)],
+                        dim=3).reshape(b, l, ln, spec)
+        m *= 2
+    return x
+
+
+def _ln_inv_axis1(x, psi_inv, q, qi, radix: int = 2):
+    """Gentleman-Sande inverse butterflies along the `len` axis of
+    x[b, L, len, spec], without the 1/len scale (the caller applies one
+    N^{-1} for both phases).  radix=4 fuses stage pairs as in
+    _ln_fwd_axis1."""
+    b, l, ln, spec = x.shape
+    t, m = 1, ln
+    while m > 1:
+        if radix == 4 and m % 4 == 0:
+            h2 = m // 4
+            xs = x.reshape(b, l, h2, 2, 2, t, spec)   # [g, a, dA, k]
+            u = xs[:, :, :, :, 0]                     # [b, L, h2, 2, t, spec]
+            v = xs[:, :, :, :, 1]
+            s1 = psi_inv[:, m // 2:m].reshape(l, h2, 2)[
+                None, :, :, :, None, None]
+            q6, qi6 = q[..., None, None], qi[..., None, None]
+            lo = mod_add(u, v, q6)
+            hi = mont_mul(mod_sub(u, v, q6), s1, q6, qi6)
+            s2 = psi_inv[:, h2:2 * h2][None, :, :, None, None]
+            qq, qqi = q[..., None], qi[..., None]
+            d1_lo = mod_sub(lo[:, :, :, 0], lo[:, :, :, 1], qq)
+            d1_hi = mod_sub(hi[:, :, :, 0], hi[:, :, :, 1], qq)
+            x = torch.stack([mod_add(lo[:, :, :, 0], lo[:, :, :, 1], qq),
+                             mod_add(hi[:, :, :, 0], hi[:, :, :, 1], qq),
+                             mont_mul(d1_lo, s2, qq, qqi),
+                             mont_mul(d1_hi, s2, qq, qqi)],
+                            dim=3).reshape(b, l, ln, spec)
+            t *= 4
+            m = h2
+            continue
+        h = m // 2
+        xs = x.reshape(b, l, h, 2, t, spec)
+        u = xs[:, :, :, 0]
+        v = xs[:, :, :, 1]
+        s = psi_inv[:, h:2 * h][None, :, :, None, None]
+        qq, qqi = q[..., None], qi[..., None]
+        lo = mod_add(u, v, qq)
+        hi = mont_mul(mod_sub(u, v, qq), s, qq, qqi)
+        x = torch.stack([lo, hi], dim=3).reshape(b, l, ln, spec)
+        t *= 2
+        m = h
+    return x
+
+
+def ntt4_fwd_fused(x, psi1, psi2, corr, qs, qinv_negs, radix: int = 2):
+    """4-step forward NTT over all limbs, [..., L, N] natural order ->
+    bit-reversed, bit-identical to ntt_fwd_fused.  psi1: [L, n1], psi2:
+    [L, n2], corr: [L, N], N = n1 * n2 (the split is read off the tables)."""
+    l, n = x.shape[-2], x.shape[-1]
+    n1, n2 = psi1.shape[-1], psi2.shape[-1]
+    batch = x.shape[:-2]
+    q = qs[None, :, None, None]
+    qi = qinv_negs[None, :, None, None]
+    x = x.reshape(-1, l, n1, n2)                          # [j1][j2]
+    x = _ln_fwd_axis1(x, psi1, q, qi, radix)              # [br k1][j2]
+    x = mont_mul(x, corr.reshape(1, l, n1, n2), q, qi)
+    x = x.transpose(2, 3)                                 # [j2][br k1]
+    x = _ln_fwd_axis1(x, psi2, q, qi, radix)              # [br k2][br k1]
+    return x.transpose(2, 3).reshape(batch + (l, n))
+
+
+def ntt4_inv_fused(x, psi1_inv, psi2_inv, corr_inv, n_inv_monts, qs,
+                   qinv_negs, radix: int = 2):
+    """4-step inverse NTT over all limbs, bit-reversed -> natural order,
+    bit-identical to ntt_inv_fused (one combined N^{-1} R scale)."""
+    l, n = x.shape[-2], x.shape[-1]
+    n1, n2 = psi1_inv.shape[-1], psi2_inv.shape[-1]
+    batch = x.shape[:-2]
+    q = qs[None, :, None, None]
+    qi = qinv_negs[None, :, None, None]
+    x = x.reshape(-1, l, n1, n2)                          # [br k1][br k2]
+    x = x.transpose(2, 3)                                 # [br k2][br k1]
+    x = _ln_inv_axis1(x, psi2_inv, q, qi, radix)          # [j2][br k1]
+    x = x.transpose(2, 3)                                 # [br k1][j2]
+    x = mont_mul(x, corr_inv.reshape(1, l, n1, n2), q, qi)
+    x = _ln_inv_axis1(x, psi1_inv, q, qi, radix)          # [j1][j2]
+    x = x.reshape(-1, l, n)
+    x = mont_mul(x, _col(n_inv_monts), _col(qs), _col(qinv_negs))
+    return x.reshape(batch + (l, n))
+
+
 def mul_add_fused(x, y_mont, z, qs, qinv_negs):
     """x (*) y_mont + z over [..., L, N]; y_mont and z broadcast to x."""
     return mod_add(mont_mul(x, y_mont, _col(qs), _col(qinv_negs)), z,

@@ -13,7 +13,8 @@ import torch
 from repro_torch.core.ckks import (cipher, encoding, params, sharded,
                                    transcipher)
 from repro_torch.core.secure_agg import ProtectedUpdate
-from repro_torch.kernels import he_agg, lift, ntt, ops, pointwise, ref
+from repro_torch.kernels import (build, he_agg, lift, ntt, ops, pointwise,
+                                  ref, tune)
 from repro_torch.launch import fl_step, mesh as tmesh
 from repro_torch.wire import compress, stream
 
@@ -59,10 +60,79 @@ def test_kernels_match_plain_versions(cuda, n):
     torch.cuda.synchronize()
     for got, want in pairs:
         assert torch.equal(got, want)
-    assert ops.launch_counts() == {"ntt_fwd": 1, "ntt_inv": 1, "mul_add": 1,
-                                   "weighted_sum": 1, "weighted_accum": 0,
+    assert ops.launch_counts() == {"ntt_fwd": 1, "ntt_inv": 1,
+                                   "ntt4_fwd": 0, "ntt4_inv": 0,
+                                   "mul_add": 1, "weighted_sum": 1,
+                                   "weighted_accum": 0,
                                    "weighted_accum_chunks": 0,
                                    "mod_lift": 0}
+
+
+@pytest.mark.parametrize("n", [256, 8192])
+def test_ntt4_kernels_match_plain_versions(cuda, n):
+    """Every split x radix x block_b of both 4-step kernels against the
+    plain 4-step version and the flat NTT, at B=5 (10 (row, limb) pairs:
+    block_b 4 leaves a ragged last block)."""
+    ctx = params.make_test_context(n_poly=n, n_limbs=2, device=cuda)
+    t = ctx.device_tables
+    x = _residues(np.random.RandomState(n + 4), ctx, 5, cuda)
+    flat_fwd = ref.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)
+    flat_inv = ref.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts,
+                                 t.qs, t.qinv_negs)
+    configs = [c.config for c in tune.candidates("ntt_fwd", n, 2, 5)
+               if c.backend == "ntt4"]
+    assert len(configs) == 18
+    ops.reset_launch_counts()
+    for cfg in configs:
+        s = ctx.split_device_tables(cfg.ntt4_split)
+        fwd = ntt.ntt4_fwd_fused(x, s.ntt4_psi1_mont, s.ntt4_psi2_mont,
+                                 s.ntt4_corr_mont, s.qs, s.qinv_negs,
+                                 radix=cfg.radix, block_b=cfg.block_b)
+        inv = ntt.ntt4_inv_fused(x, s.ntt4_psi1_inv_mont,
+                                 s.ntt4_psi2_inv_mont, s.ntt4_corr_inv_mont,
+                                 s.n_inv_monts, s.qs, s.qinv_negs,
+                                 radix=cfg.radix, block_b=cfg.block_b)
+        torch.cuda.synchronize()
+        assert torch.equal(fwd, ref.ntt4_fwd_fused(
+            x, s.ntt4_psi1_mont, s.ntt4_psi2_mont, s.ntt4_corr_mont, s.qs,
+            s.qinv_negs, cfg.radix)), cfg
+        assert torch.equal(fwd, flat_fwd), cfg
+        assert torch.equal(inv, flat_inv), cfg
+    counts = ops.launch_counts()
+    assert (counts["ntt4_fwd"], counts["ntt4_inv"]) == (18, 18)
+    assert counts["ntt_fwd"] == counts["ntt_inv"] == 0
+
+
+def test_ntt_ops_resolve_to_the_4step_kernels_on_the_card(cuda):
+    """A cuda cache entry sends ops.ntt_fwd / ntt_inv to the 4-step kernels
+    (the flat ones stay at 0 launches), with the flat kernels' bits; the
+    sweep's winner is never slower than the default; build lists ntt4."""
+    assert "ntt4" in build.SOURCES and "ntt4" in build.load_all()
+    ctx = params.make_test_context(n_poly=1024, n_limbs=2, device=cuda)
+    x = _residues(np.random.RandomState(9), ctx, 3, cuda)
+    tune.clear_cache()
+    try:
+        ops.reset_launch_counts()
+        want = ops.ntt_fwd(x, ctx)
+        want_inv = ops.ntt_inv(want, ctx)
+        cfg = tune.KernelConfig(block_b=4, ntt4_split=(64, 16), radix=4)
+        for op in tune.OPS:
+            tune.put(op, 1024, 2, 3, "cuda", "ntt4", cfg)
+        got = ops.ntt_fwd(x, ctx)
+        got_inv = ops.ntt_inv(got, ctx)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_inv, want_inv)
+        assert torch.equal(got_inv, x)
+        assert ops.launch_counts() == {
+            "ntt_fwd": 1, "ntt_inv": 1, "ntt4_fwd": 1, "ntt4_inv": 1,
+            "mul_add": 0, "weighted_sum": 0, "weighted_accum": 0,
+            "weighted_accum_chunks": 0, "mod_lift": 0}
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        res = tune.sweep_op("ntt_inv", ctx, 3, gen, reps=2)
+        assert res.platform == "cuda" and res.n_candidates == 19
+        assert res.tuned_ms <= res.default_ms
+    finally:
+        tune.clear_cache()
 
 
 def test_strided_operands_and_ciphertext_layout(cuda):
@@ -360,6 +430,7 @@ def test_sharded_round_on_the_card_matches_the_cpu(cuda):
     for got, want in zip(*out):
         assert torch.equal(got, want)
     assert counts[0] == {"ntt_fwd": 4 * 2 + 4 * 4 + 4 * 2, "ntt_inv": 4,
+                      "ntt4_fwd": 0, "ntt4_inv": 0,
                       "mul_add": 4 * 2 + 4 + 4, "weighted_sum": 8,
                       "weighted_accum": 8, "weighted_accum_chunks": 8,
                       "mod_lift": 0}
@@ -378,6 +449,22 @@ def test_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="does not match"):
         ntt.ntt_fwd_fused(x[..., :128].contiguous(), t.psi_rev_mont, t.qs,
                           t.qinv_negs)
+    ntt4 = (t.ntt4_psi1_mont, t.ntt4_psi2_mont, t.ntt4_corr_mont, t.qs,
+            t.qinv_negs)
+    with pytest.raises(ValueError, match="does not give N"):
+        ntt.ntt4_fwd_fused(x, t.ntt4_psi1_mont[:, :8], *ntt4[1:])
+    with pytest.raises(ValueError, match="radix"):
+        ntt.ntt4_fwd_fused(x, *ntt4, radix=8)
+    with pytest.raises(ValueError, match="block_b"):
+        ntt.ntt4_fwd_fused(x, *ntt4, block_b=9)
+    big = params.make_test_context(n_poly=16384, n_limbs=2,
+                                   device=cuda).device_tables
+    with pytest.raises(ValueError, match="shared memory"):
+        ntt.ntt4_fwd_fused(torch.zeros(1, 2, 16384, dtype=torch.int32,
+                                       device=cuda),
+                           big.ntt4_psi1_mont, big.ntt4_psi2_mont,
+                           big.ntt4_corr_mont, big.qs, big.qinv_negs,
+                           block_b=4)
     with pytest.raises(ValueError, match="on cpu"):
         pointwise.mul_add_fused(x, x, x, t.qs.cpu(), t.qinv_negs)
     with pytest.raises(ValueError, match="aligned"):

@@ -311,8 +311,10 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.weighted_accum_chunks(x, x, torch.ones(2, 2, dtype=torch.int32),
                               tctx)
     ops.mod_lift(x[:, 0], 2, tctx)
-    assert ops.launch_counts() == {"ntt_fwd": 0, "ntt_inv": 0, "mul_add": 0,
-                                   "weighted_sum": 0, "weighted_accum": 0,
+    assert ops.launch_counts() == {"ntt_fwd": 0, "ntt_inv": 0,
+                                   "ntt4_fwd": 0, "ntt4_inv": 0,
+                                   "mul_add": 0, "weighted_sum": 0,
+                                   "weighted_accum": 0,
                                    "weighted_accum_chunks": 0,
                                    "mod_lift": 0}
 
