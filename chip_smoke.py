@@ -11,8 +11,12 @@ without CUDA the script exits non-zero before doing anything:
 2. kernels: each kernel's wrapper runs on the card at the main path's shapes
    and is held against its plain PyTorch version on the same inputs with
    exact integer equality, timed with CUDA events (mod_lift also beside
-   the one torch.remainder call that computes it).  A small round on the
-   card is held bit for bit against the same draws on the CPU: keygen,
+   the one torch.remainder call that computes it) and set beside its bound:
+   the largest of its bytes over 3.35 TB/s and its integer multiplies and
+   ALU instructions, each over SMs x 64 lanes x the card's maximum SM
+   clock.  The flat NTTs are also held exact at keygen's [L, N] and at
+   N = 256, 1024 and 16384.  A small round on the card is held bit for
+   bit against the same draws on the CPU: keygen,
    public-key and seeded encrypt, `a` expansion for both derive ids,
    weighted_sum, rescale, decrypt, a StreamIngest of two small packed
    blobs, and a transcipher provision, mask and ingest.  The 4-step NTT
@@ -159,13 +163,25 @@ PLAIN_CODEC = "f16"
 A_SEED0 = 100          # client i seeds its public `a` with A_SEED0 + i
 TC_A_SEED0 = 200       # ... and with TC_A_SEED0 + i in the transcipher round
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 3.35 TB/s; 67 TFLOP/s
-# float32 outside the tensor cores, the rate the integer multiplies are
-# counted against (Hopper issues 32-bit integer multiplies at no more than
-# that rate, so the operations bound is a lower bound).
+# Published H100 SXM peak (NVIDIA data sheet): HBM3 3.35 TB/s.  Integer
+# work is counted per pipe, each pipe at 64 lanes an SM (Hopper white
+# paper) times the SM count and the card's maximum SM clock, both read off
+# the card: the multiply pipe (32-bit multiplies and multiply-adds) and the
+# ALU pipe (adds, compares, selects, min/max).  Per operation, the least
+# instructions Hopper needs, as (multiplies, ALU): a 64-bit REDC's three
+# multiplies, and for a modular add, subtract or final reduction its add
+# plus one VIADDMNMX, which adds and takes the unsigned min in one
+# instruction (the SASS of csrc/ntt.cu: tools/ptxas_report.py --sass).
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
-MULS_PER_MONT = 3          # a*b, lo(t)*(-q^-1), m*q
+INT_LANES_PER_SM = 64
+MONT = (3, 1)        # a*b, lo(t)*(-q^-1), m*q; r = min(r, r - q)
+MOD_ADD = (0, 2)     # s = a + b; min(s, s - q)
+MOD_SUB = (0, 2)     # d = a - b; min(d, d + q)
+BUTTERFLY = (3, 5)   # one of each
+# mod_lift's `%` by a per-limb q (lift.cu): the reciprocal of q once per
+# limb and four words, then per word at least a high multiply, a
+# multiply-subtract and one correction (a fused add-min)
+REMAINDER = (2, 1)
 
 KERNELS = {
     # name: (CUDA source, the TPU kernel it replaces)
@@ -229,10 +245,35 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, nops):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def card_int_rate():
+    """(SM count, max SM clock in MHz, integer ops/s of one pipe) of card 0:
+    the pipe's 64 lanes an SM at the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smi = subprocess.run(["nvidia-smi", "-i", "0",
+                          "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    return sms, mhz, sms * INT_LANES_PER_SM * mhz * 1e6
+
+
+def int_ops(*terms):
+    """(multiplies, ALU instructions) of `count` operations of each kind,
+    for terms (count, (multiplies, ALU)) of one kernel call."""
+    return (sum(c * op[0] for c, op in terms),
+            sum(c * op[1] for c, op in terms))
+
+
+def bound(nbytes, ops, int_rate):
+    """(ms, "bytes" or "operations", the pipe that sets it): the largest of
+    the bytes over the memory rate and each integer pipe's count over its
+    rate."""
+    muls, alu = ops
+    t = {"bytes": nbytes / PEAK_BYTES_PER_S * 1e3,
+         "multiply": muls / int_rate * 1e3, "alu": alu / int_rate * 1e3}
+    pipe = max(t, key=t.get)
+    return t[pipe], "bytes" if pipe == "bytes" else "operations", pipe
 
 
 # ---------------------------------------------------------------------------
@@ -240,8 +281,9 @@ def bound(nbytes, nops):
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(ctx, gen, n_rows):
-    """Returns {name: row of the kernels JSON line} (launches filled later)."""
+def check_kernels(ctx, gen, n_rows, int_rate):
+    """Returns {name: row of the kernels JSON line} (launches filled later);
+    int_rate: one integer pipe's ops/s (card_int_rate)."""
     dev = ctx.device
     t = ctx.device_tables
     l, n = ctx.n_limbs, ctx.n_poly
@@ -275,20 +317,23 @@ def check_kernels(ctx, gen, n_rows):
     words64 = words.to(torch.int64) & 0xFFFFFFFF    # widened beforehand
     q64 = t.qs.to(torch.int64)[:, None]
     elems = x.numel()
-    ntt_muls = MULS_PER_MONT * (n // 2) * log_n * (elems // n)
-    # name: (kernel, plain version, shape, bytes, operations, library call)
+    butterflies = (n // 2) * log_n * (elems // n)
+    per_client = cts[0].numel()
+    # name: (kernel, plain version, shape, bytes, (multiplies, ALU),
+    # library call)
     cases = {
         "ntt_fwd": (
             lambda: ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs),
             lambda: ref.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs),
-            x.shape, 4 * (2 * elems + l * n + 2 * l), ntt_muls),
+            x.shape, 4 * (2 * elems + l * n + 2 * l),
+            int_ops((butterflies, BUTTERFLY))),
         "ntt_inv": (
             lambda: ntt.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts,
                                       t.qs, t.qinv_negs),
             lambda: ref.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts,
                                       t.qs, t.qinv_negs),
             x.shape, 4 * (2 * elems + l * n + 3 * l),
-            ntt_muls + MULS_PER_MONT * elems),
+            int_ops((butterflies, BUTTERFLY), (elems, MONT))),
         # the default split (64 x 128 at N=8192), radix 2, block_b 1; bytes:
         # x and out once each, the psi1, psi2 and corr tables once
         "ntt4_fwd": (
@@ -297,7 +342,7 @@ def check_kernels(ctx, gen, n_rows):
             lambda: ref.ntt4_fwd_fused(x, t.ntt4_psi1_mont, t.ntt4_psi2_mont,
                                        t.ntt4_corr_mont, t.qs, t.qinv_negs),
             x.shape, 4 * (2 * elems + l * (n1 + n2 + n) + 2 * l),
-            ntt_muls + MULS_PER_MONT * elems),
+            int_ops((butterflies, BUTTERFLY), (elems, MONT))),
         "ntt4_inv": (
             lambda: ntt.ntt4_inv_fused(
                 x, t.ntt4_psi1_inv_mont, t.ntt4_psi2_inv_mont,
@@ -306,42 +351,45 @@ def check_kernels(ctx, gen, n_rows):
                 x, t.ntt4_psi1_inv_mont, t.ntt4_psi2_inv_mont,
                 t.ntt4_corr_inv_mont, t.n_inv_monts, t.qs, t.qinv_negs),
             x.shape, 4 * (2 * elems + l * (n1 + n2 + n) + 3 * l),
-            ntt_muls + 2 * MULS_PER_MONT * elems),
+            int_ops((butterflies, BUTTERFLY), (2 * elems, MONT))),
         "mul_add": (
             lambda: pointwise.mul_add_fused(x, y, z, t.qs, t.qinv_negs),
             lambda: ref.mul_add_fused(x, y, z, t.qs, t.qinv_negs),
-            x.shape, 4 * (3 * elems + l * n + 2 * l), MULS_PER_MONT * elems),
+            x.shape, 4 * (3 * elems + l * n + 2 * l),
+            int_ops((elems, MONT), (elems, MOD_ADD))),
         "weighted_sum": (
             lambda: he_agg.he_weighted_sum_fused(cts, w, t.qs, t.qinv_negs,
                                                  limb_axis=-3),
             lambda: ref.he_weighted_sum_fused(cts, w, t.qs, t.qinv_negs,
                                               limb_axis=-3),
             cts.shape,
-            4 * ((N_CLIENTS + 1) * cts[0].numel() + N_CLIENTS * l + 2 * l),
-            MULS_PER_MONT * N_CLIENTS * cts[0].numel()),
+            4 * ((N_CLIENTS + 1) * per_client + N_CLIENTS * l + 2 * l),
+            int_ops((N_CLIENTS * per_client, MONT),
+                    ((N_CLIENTS - 1) * per_client, MOD_ADD))),
         "weighted_accum": (
             lambda: he_agg.he_weighted_accum_fused(
                 acc, cts[0], w_one, t.qs, t.qinv_negs, limb_axis=-3),
             lambda: ref.he_weighted_accum_fused(
                 acc, cts[0], w_one, t.qs, t.qinv_negs, limb_axis=-3),
             acc.shape, 4 * (3 * acc.numel() + 3 * l),
-            MULS_PER_MONT * acc.numel()),
+            int_ops((acc.numel(), MONT), (acc.numel(), MOD_ADD))),
         "weighted_accum_chunks": (
             lambda: he_agg.he_weighted_accum_chunks_fused(
                 acc, cts[0], w_rows, t.qs, t.qinv_negs, limb_axis=-3),
             lambda: ref.he_weighted_accum_chunks_fused(
                 acc, cts[0], w_rows, t.qs, t.qinv_negs, limb_axis=-3),
             acc.shape, 4 * (3 * acc.numel() + w_rows.numel() + 2 * l),
-            MULS_PER_MONT * acc.numel()),
-        # one remainder per output word; the bytes bound it
+            int_ops((acc.numel(), MONT), (acc.numel(), MOD_ADD))),
+        # one remainder per output word
         "mod_lift": (
             lambda: lift.mod_lift_fused(words, t.qs),
             lambda: ref.mod_lift_fused(words, t.qs),
-            words.shape, 4 * (words.numel() * (1 + l) + l), words.numel() * l,
+            words.shape, 4 * (words.numel() * (1 + l) + l),
+            int_ops((words.numel() * l, REMAINDER)),
             lambda: torch.remainder(words64[:, None, :], q64)),
     }
     rows = {}
-    for name, (kern, plain, shape, nbytes, nops, *library) in cases.items():
+    for name, (kern, plain, shape, nbytes, ops, *library) in cases.items():
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -361,19 +409,20 @@ def check_kernels(ctx, gen, n_rows):
         del got, want
         ms = time_ms(kern, 10)
         plain_ms = time_ms(plain, 2)
-        bound_ms, bound_by = bound(nbytes, nops)
+        bound_ms, bound_by, pipe = bound(nbytes, ops, int_rate)
         source, replaces = KERNELS[name]
         rows[name] = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": None,
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": library_ms}
+                      "bound_pipe": pipe, "library_ms": library_ms}
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
         log(f"kernel {name}: exact at {tuple(shape)}  ms={ms:.4f}  "
-            f"plain_ms={plain_ms:.4f}  bound_ms={bound_ms:.4f} ({bound_by}, "
-            f"{nbytes / 1e9:.3f} GB, {nops / 1e9:.3f} G int ops)  "
-            f"library call: {lib}")
-    check_accum_variants(acc, cts[0], w_one, t)
+            f"plain_ms={plain_ms:.4f}  bound_ms={bound_ms:.4f} (set by "
+            f"{pipe}: {nbytes / 1e9:.3f} GB, {ops[0] / 1e9:.3f} G "
+            f"multiplies, {ops[1] / 1e9:.3f} G ALU)  library call: {lib}")
+    check_accum_variants(acc, cts[0], w_one, t, int_rate)
+    check_flat_ntt_shapes(ctx, gen)
     check_ntt4_configs(ctx, x, rows)
     log("kernels: " + ", ".join(rows))
     return rows
@@ -422,7 +471,37 @@ def check_ntt4_configs(ctx, x, rows):
             f"at {best.to_json()}, bound {rows[name]['bound_ms']:.4f} ms")
 
 
-def check_accum_variants(acc, ct, w, t):
+def check_flat_ntt_shapes(ctx, gen):
+    """The flat NTT kernels beside the main path's [11328, L, N]: keygen's
+    [L, N] (B = 1) and five rows at N = 256, 1024 and 16384 (the last
+    takes the 66 KiB shared-memory path), each exact against the plain
+    version in both directions and round-tripping."""
+    cases = [(ctx, (ctx.n_limbs, ctx.n_poly))]
+    cases += [(params.make_test_context(n_poly=n, n_limbs=ctx.n_limbs,
+                                        device=ctx.device),
+               (5, ctx.n_limbs, n)) for n in (256, 1024, 16384)]
+    for c, shape in cases:
+        t = c.device_tables
+        x = cipher.sample_uniform(gen, shape[:-2] + shape[-1:], c)
+        fwd = ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)
+        inv = ntt.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                                t.qinv_negs)
+        back = ntt.ntt_inv_fused(fwd, t.psi_inv_rev_mont, t.n_inv_monts,
+                                 t.qs, t.qinv_negs)
+        torch.cuda.synchronize()
+        if not (torch.equal(fwd, ref.ntt_fwd_fused(x, t.psi_rev_mont, t.qs,
+                                                   t.qinv_negs))
+                and torch.equal(inv, ref.ntt_inv_fused(
+                    x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                    t.qinv_negs))
+                and torch.equal(back, x)):
+            raise AssertionError(f"flat NTT kernels differ from their plain "
+                                 f"versions at {tuple(x.shape)}")
+    log("kernel ntt_fwd / ntt_inv: exact and round-tripping also at "
+        + ", ".join(str(shape) for _, shape in cases))
+
+
+def check_accum_variants(acc, ct, w, t, int_rate):
     """weighted_accum with its accumulator broadcast (one row, read for
     every row of ct) and folded in place (out=acc), exact against the plain
     version; the broadcast's time is printed beside the full one's."""
@@ -448,8 +527,9 @@ def check_accum_variants(acc, ct, w, t):
     del folded, want
     ms = time_ms(lambda: he_agg.he_weighted_accum_fused(
         one, ct, w, t.qs, t.qinv_negs, limb_axis=-3), 10)
-    bound_ms, _ = bound(4 * (2 * ct.numel() + one.numel() + 3 * ct.shape[1]),
-                        MULS_PER_MONT * ct.numel())
+    bound_ms, _, _ = bound(
+        4 * (2 * ct.numel() + one.numel() + 3 * ct.shape[1]),
+        int_ops((ct.numel(), MONT), (ct.numel(), MOD_ADD)), int_rate)
     log(f"kernel weighted_accum: exact with a broadcast [1, L, 2, N] "
         f"accumulator (ms={ms:.4f}, bound_ms={bound_ms:.4f}) and in place")
 
@@ -1197,9 +1277,12 @@ def main():
     log(f"phase 1 build: {time.perf_counter() - t:.1f} s "
         f"({', '.join(build.SOURCES)} for sm_90a)")
 
+    sms, mhz, int_rate = card_int_rate()
+    log(f"card: {sms} SMs, max SM clock {mhz:.0f} MHz, "
+        f"{int_rate / 1e12:.2f} T integer ops/s a pipe (multiply, ALU)")
     ctx = params.make_context()
     gen = torch.Generator(device=ctx.device).manual_seed(args.seed)
-    rows = check_kernels(ctx, gen, n_ciphertexts(ctx.slots))
+    rows = check_kernels(ctx, gen, n_ciphertexts(ctx.slots), int_rate)
     check_small_round_against_cpu(ctx, args.seed)
     del ctx, gen
     torch.cuda.empty_cache()
@@ -1234,6 +1317,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
+    log(f"card: {sms} SMs, max SM clock {mhz:.0f} MHz")
     log(smi.stdout.strip().splitlines()[0])
     log(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@
 Each `csrc/*.cu` source becomes one shared library with a plain C interface
 (pointers, sizes and the stream in; `cudaGetLastError()` out), built for
 `sm_90a` at first use into `kernels/_build/` (listed in `.gitignore`).  The
-file name carries a hash of the sources and flags, so an edited source is
-rebuilt and a stale library is never loaded.  `load_all()` starts one nvcc
-per source at once and waits for all of them.
+file name carries a hash of the source, every header under `csrc/` and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  `load_all()` starts one nvcc per source at once and waits
+for all of them.
 
 A failed build raises with nvcc's stderr; nothing falls back to the plain
 PyTorch versions.
@@ -77,8 +78,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
+    """The library's path, named by a hash of the flags, every header under
+    `csrc/` (any source may include any of them) and the source."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / "mont.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

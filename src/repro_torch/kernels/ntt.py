@@ -15,7 +15,7 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
-MAX_LOG_N = 14   # N = 16384 needs 64 KiB of shared memory a block
+MAX_LOG_N = 14   # N = 16384 needs 66 KiB of shared memory a block
 MAX_SMEM_BYTES = 232_448   # the most shared memory an H100 block can use
 MAX_BLOCK_B = 8            # ntt4.cu's kMaxBlockB
 

@@ -28,11 +28,13 @@ tensor's device decides that, as everywhere in the port).
     (the H100's 3.35 TB/s, one launch a dispatch) does not rule out.  The
     default is never pruned and always measured, so the winner's time is
     at most the default's.  In today's candidate space the pruning is
-    inert: the model puts every candidate within 1.35x of every other
-    (flat 2.625, 4-step radix 2 2.875, radix 4 2.125 times the memory time
-    at N=8192), under PRUNE_RATIO, and the card measures them within 1.9x
-    of each other, so no ratio prunes safely yet.  It starts to matter
-    when a geometry parameter of the flat NTT widens the space.
+    inert: the model puts every candidate within 2.1x of every other
+    (flat 1.375, 4-step radix 4 2.125, radix 2 2.875 times the memory time
+    at N=8192), under PRUNE_RATIO, so every candidate is measured.  The
+    model is an order, not a time: on the H100 the register-pass flat
+    kernel takes about 1.6x the memory time and the 4-step kernels
+    4.3-7.7x (chip_smoke.py).  Pruning starts to matter when a geometry
+    parameter of the flat NTT widens the space.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ CACHE_VERSION = 1
 PRUNE_RATIO = 3.0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 LAUNCH_OVERHEAD_S = 5e-6    # one kernel launch a dispatch
+FLAT_STAGES_PER_PASS = 5    # ntt.cu's kLogElems: 32 residues a thread
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,9 +281,10 @@ def candidates(op: str, n: int, l: int, b: int) -> list[Candidate]:
 
 def _model_time_s(n: int, l: int, b: int, cand: Candidate) -> float:
     """Roofline estimate of one candidate: device-memory traffic (each
-    element read and written once) over 3.35 TB/s, scaled by the stage
-    count of the NTT variants, plus one launch.  It only has to be right in
-    order: what is PRUNE_RATIO x the best estimate is not measured."""
+    element read and written once) over 3.35 TB/s, scaled by the passes
+    over shared memory of the NTT variants (an eighth of the traffic
+    each), plus one launch.  It only has to be right in order: what is
+    PRUNE_RATIO x the best estimate is not measured."""
     mem_s = 8 * b * l * n / HBM_BYTES_PER_S
     if cand.backend == "ntt4":
         n1, n2 = cand.config.ntt4_split or _params.ntt4_split(n)
@@ -291,7 +295,8 @@ def _model_time_s(n: int, l: int, b: int, cand: Candidate) -> float:
         # one more pass for the correction table
         mem_s *= 1.0 + stages / 8.0 + 0.25
     else:
-        mem_s *= 1.0 + math.log2(n) / 8.0
+        # csrc/ntt.cu: register passes of at most 5 stages each
+        mem_s *= 1.0 + math.ceil(math.log2(n) / FLAT_STAGES_PER_PASS) / 8.0
     return mem_s + LAUNCH_OVERHEAD_S
 
 

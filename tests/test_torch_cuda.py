@@ -6,6 +6,8 @@ is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,8 @@ from repro_torch.kernels import (build, he_agg, lift, ntt, ops, pointwise,
                                   ref, tune)
 from repro_torch.launch import fl_step, mesh as tmesh
 from repro_torch.wire import compress, stream
+
+from _flat_tables import FlatTables
 
 pytestmark = pytest.mark.cuda
 
@@ -34,11 +38,18 @@ def _residues(rng, ctx, rows, device):
     return torch.from_numpy(x.astype(np.int32)).to(device)
 
 
-@pytest.mark.parametrize("n", [256, 1024, 8192, 16384])
+@pytest.mark.parametrize("n", [2, 32, 256, 1024, 8192, 16384])
 def test_kernels_match_plain_versions(cuda, n):
-    """N=16384 takes the kernel's 64 KiB dynamic shared memory path."""
-    ctx = params.make_test_context(n_poly=n, n_limbs=2, device=cuda)
-    t = ctx.device_tables
+    """N=16384 takes the NTT kernels' 66 KiB dynamic shared memory path,
+    N <= 32 their one register pass.  N = 2 has no context (its 4-step
+    tables need N >= 4), so it takes the flat tables alone.  The NTTs also
+    run on one [L, N] row, keygen's shape."""
+    if n >= 4:
+        ctx = params.make_test_context(n_poly=n, n_limbs=2, device=cuda)
+        t = ctx.device_tables
+    else:
+        t = FlatTables(n, 2, cuda)
+        ctx = types.SimpleNamespace(primes=t.primes, n_poly=n)
     rng = np.random.RandomState(n)
     x, z = _residues(rng, ctx, 5, cuda), _residues(rng, ctx, 5, cuda)
     cts = torch.stack([x, z, x])
@@ -52,6 +63,12 @@ def test_kernels_match_plain_versions(cuda, n):
                            t.qinv_negs),
          ref.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
                            t.qinv_negs)),
+        (ntt.ntt_fwd_fused(x[0], t.psi_rev_mont, t.qs, t.qinv_negs),
+         ref.ntt_fwd_fused(x[0], t.psi_rev_mont, t.qs, t.qinv_negs)),
+        (ntt.ntt_inv_fused(x[0], t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                           t.qinv_negs),
+         ref.ntt_inv_fused(x[0], t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
+                           t.qinv_negs)),
         (pointwise.mul_add_fused(x, z[:1], z, t.qs, t.qinv_negs),
          ref.mul_add_fused(x, z[:1], z, t.qs, t.qinv_negs)),
         (he_agg.he_weighted_sum_fused(cts, w, t.qs, t.qinv_negs),
@@ -60,7 +77,7 @@ def test_kernels_match_plain_versions(cuda, n):
     torch.cuda.synchronize()
     for got, want in pairs:
         assert torch.equal(got, want)
-    assert ops.launch_counts() == {"ntt_fwd": 1, "ntt_inv": 1,
+    assert ops.launch_counts() == {"ntt_fwd": 2, "ntt_inv": 2,
                                    "ntt4_fwd": 0, "ntt4_inv": 0,
                                    "mul_add": 1, "weighted_sum": 1,
                                    "weighted_accum": 0,

@@ -348,13 +348,27 @@ def test_wrappers_refuse_tensors_neither_cpu_nor_cuda(op):
                                          t.qinv_negs)
 
 
-def test_build_cache_key_follows_the_sources():
-    """Library names hash the header, the source and the flags, so an edit
-    rebuilds instead of loading a stale library."""
+def test_build_cache_key_follows_the_sources(tmp_path, monkeypatch):
+    """Library names hash every header, the source and the flags, so an
+    edit rebuilds instead of loading a stale library.  Edits go to a copy
+    of csrc/."""
     paths = {n: build._lib_path(n) for n in build.SOURCES}
     assert len(set(paths.values())) == len(build.SOURCES)
     assert all(p.parent == build.BUILD_DIR for p in paths.values())
     assert set(build.SIGNATURES) == set(build.SOURCES)
+    copy = tmp_path / "csrc"
+    shutil.copytree(CSRC, copy)
+    monkeypatch.setattr(build, "CSRC", copy)
+    assert {n: build._lib_path(n) for n in build.SOURCES} == paths
+    for edit in ("mont.cuh", "added.cuh", "ntt.cu"):
+        before = {n: build._lib_path(n) for n in build.SOURCES}
+        with open(copy / edit, "a") as f:
+            f.write("// edited\n")
+        after = {n: build._lib_path(n) for n in build.SOURCES}
+        changed = {n for n in build.SOURCES if after[n] != before[n]}
+        # a header may be included by any source; a source only by itself
+        assert changed == ({"ntt"} if edit == "ntt.cu"
+                           else set(build.SOURCES)), edit
 
 
 # ---------------------------------------------------------------------------

@@ -235,8 +235,15 @@ def test_model_orders_and_pruning_never_drops_the_default(monkeypatch):
     r2 = tune.Candidate("ntt4", tune.KernelConfig(1, (64, 128), 2))
     r4 = tune.Candidate("ntt4", tune.KernelConfig(1, (64, 128), 4))
     assert est[r4] < est[r2]
+    # the flat kernel's three register passes against the 4-step radix 4
+    # and radix 2 stage passes, in memory times (tune's docstring)
+    mem = 8 * b * l * n / tune.HBM_BYTES_PER_S
+    ratio = {c: (est[c] - tune.LAUNCH_OVERHEAD_S) / mem
+             for c in (cands[0], r4, r2)}
+    assert ratio == pytest.approx({cands[0]: 1.375, r4: 2.125, r2: 2.875})
     # today's space is inside the ratio: the pruning is inert
-    assert max(est.values()) < 1.4 * min(est.values())
+    assert max(est.values()) < 2.1 * min(est.values()) < \
+        tune.PRUNE_RATIO * min(est.values())
     ctx = _ctx()
     full = tune.sweep_op("ntt_fwd", ctx, 4, torch.Generator().manual_seed(0),
                          reps=1)
