@@ -20,8 +20,11 @@ without CUDA the script exits non-zero before doing anything:
    public-key and seeded encrypt, `a` expansion for both derive ids,
    weighted_sum, rescale, decrypt, a StreamIngest of two small packed
    blobs, and a transcipher provision, mask and ingest.  The 4-step NTT
-   kernels run at all 18 (split, radix, block_b) configurations, each exact
-   against the flat kernel's output and timed;
+   kernels run at every split the tuner sweeps (3 at N=8192), each exact
+   against the flat kernel's output and the plain 4-step version and
+   timed (the default split's and the best split's times beside the
+   bound), and exact at keygen's [L, N] and at every split of N = 256,
+   1024 and 16384;
 2b. tuner sweep: kernels/tune.py's sweep_op for ntt_fwd and ntt_inv at
    every (N, L, B) the in-memory round dispatches its NTTs at; the cache is
    saved to a temporary file, cleared, reloaded and cleared again, so
@@ -155,7 +158,8 @@ EXPECTED_LAUNCHES = {
 # off core/ckks/cipher.py: keygen's s and e are [L, N] (B = 1), each
 # encrypt's m, u, e0, e1 and the decrypt's phase are [11328, L, N]
 ROUND_NTT_SHAPES = (("ntt_fwd", 1), ("ntt_fwd", "rows"), ("ntt_inv", "rows"))
-N_NTT4_CONFIGS = 18    # 3 splits x radix {2, 4} x block_b {1, 2, 4}
+N_NTT4_CONFIGS = 3     # the tuner's splits at N=8192; radix and block_b
+                       # change no launch of the register-pass kernel
 MESH_SLOTS = 4         # the sharded round's mesh: data 2 x model 2 at L = 2
 EXPECTED_GATHERS = 2   # decrypt's gather of limb shards, finalize's hand-off
 MAX_ERR = 1e-2
@@ -334,8 +338,11 @@ def check_kernels(ctx, gen, n_rows, int_rate):
                                       t.qs, t.qinv_negs),
             x.shape, 4 * (2 * elems + l * n + 3 * l),
             int_ops((butterflies, BUTTERFLY), (elems, MONT))),
-        # the default split (64 x 128 at N=8192), radix 2, block_b 1; bytes:
-        # x and out once each, the psi1, psi2 and corr tables once
+        # both 4-step kernels at the default split (64 x 128 at N=8192;
+        # check_ntt4_configs times every split).  Bytes: x and out once
+        # each, the psi1, psi2 and corr tables once; operations: the flat
+        # NTT's butterflies plus the twist's product an element (and the
+        # inverse's N^{-1} scale)
         "ntt4_fwd": (
             lambda: ntt.ntt4_fwd_fused(x, t.ntt4_psi1_mont, t.ntt4_psi2_mont,
                                        t.ntt4_corr_mont, t.qs, t.qinv_negs),
@@ -422,23 +429,29 @@ def check_kernels(ctx, gen, n_rows, int_rate):
             f"{pipe}: {nbytes / 1e9:.3f} GB, {ops[0] / 1e9:.3f} G "
             f"multiplies, {ops[1] / 1e9:.3f} G ALU)  library call: {lib}")
     check_accum_variants(acc, cts[0], w_one, t, int_rate)
-    check_flat_ntt_shapes(ctx, gen)
+    check_ntt_shapes(ctx, gen)
     check_ntt4_configs(ctx, x, rows)
     log("kernels: " + ", ".join(rows))
     return rows
 
 
 def check_ntt4_configs(ctx, x, rows):
-    """Both 4-step kernels at every (split, radix, block_b) the tuner sweeps
-    at x's shape, each exact against the flat kernel's output on x and
-    timed with CUDA events over 10 launches; the fastest is added to its
-    kernel's row as best_ms / best_config."""
+    """Both 4-step kernels at every split the tuner sweeps at x's shape,
+    each exact against the flat kernel's output and the plain 4-step
+    version on x and timed with CUDA events over 10 launches; the fastest
+    is added to its kernel's row as best_ms / best_config."""
     t = ctx.device_tables
     n_rows = x.shape[0]
     flat = {"ntt_fwd": ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs,
                                          t.qinv_negs),
             "ntt_inv": ntt.ntt_inv_fused(x, t.psi_inv_rev_mont,
                                          t.n_inv_monts, t.qs, t.qinv_negs)}
+    plain = {"ntt_fwd": lambda s: ref.ntt4_fwd_fused(
+                 x, s.ntt4_psi1_mont, s.ntt4_psi2_mont, s.ntt4_corr_mont,
+                 s.qs, s.qinv_negs),
+             "ntt_inv": lambda s: ref.ntt4_inv_fused(
+                 x, s.ntt4_psi1_inv_mont, s.ntt4_psi2_inv_mont,
+                 s.ntt4_corr_inv_mont, s.n_inv_monts, s.qs, s.qinv_negs)}
     for op, name in (("ntt_fwd", "ntt4_fwd"), ("ntt_inv", "ntt4_inv")):
         configs = [c.config for c in tune.candidates(op, ctx.n_poly,
                                                      ctx.n_limbs, n_rows)
@@ -458,30 +471,38 @@ def check_ntt4_configs(ctx, x, rows):
             if not torch.equal(got, flat[op]):
                 raise AssertionError(f"{name} {cfg} differs from the flat "
                                      "kernel's output")
+            if not torch.equal(got, plain[op](tables)):
+                raise AssertionError(f"{name} {cfg} differs from its plain "
+                                     "version")
             del got
             times[cfg] = time_ms(run, 10)
-            log(f"kernel {name} {cfg.ntt4_split[0]}x{cfg.ntt4_split[1]} "
-                f"radix {cfg.radix} block_b {cfg.block_b}: exact against "
-                f"the flat kernel, ms={times[cfg]:.4f}")
+            n1, n2 = cfg.ntt4_split
+            log(f"kernel {name} split {n1}x{n2}: exact against the flat "
+                f"kernel and the plain version, ms={times[cfg]:.4f}")
         best = min(times, key=times.get)
         rows[name]["best_ms"] = times[best]
         rows[name]["best_config"] = best.to_json()
-        log(f"kernel {name}: all {len(configs)} configurations exact; "
-            f"default {rows[name]['ms']:.4f} ms, best {times[best]:.4f} ms "
-            f"at {best.to_json()}, bound {rows[name]['bound_ms']:.4f} ms")
+        log(f"kernel {name}: all {len(configs)} splits exact; default "
+            f"{rows[name]['ms']:.4f} ms, best {times[best]:.4f} ms at split "
+            f"{best.ntt4_split[0]}x{best.ntt4_split[1]}, bound "
+            f"{rows[name]['bound_ms']:.4f} ms")
 
 
-def check_flat_ntt_shapes(ctx, gen):
-    """The flat NTT kernels beside the main path's [11328, L, N]: keygen's
+def check_ntt_shapes(ctx, gen):
+    """The NTT kernels beside the main path's [11328, L, N]: keygen's
     [L, N] (B = 1) and five rows at N = 256, 1024 and 16384 (the last
-    takes the 66 KiB shared-memory path), each exact against the plain
-    version in both directions and round-tripping."""
+    takes the 66 KiB shared-memory path), the flat kernels exact against
+    their plain versions in both directions and round-tripping, and the
+    4-step kernels exact against the flat output at every split of N (at
+    keygen's shape, the tuner's splits)."""
     cases = [(ctx, (ctx.n_limbs, ctx.n_poly))]
     cases += [(params.make_test_context(n_poly=n, n_limbs=ctx.n_limbs,
                                         device=ctx.device),
                (5, ctx.n_limbs, n)) for n in (256, 1024, 16384)]
+    n_splits = 0
     for c, shape in cases:
         t = c.device_tables
+        n = c.n_poly
         x = cipher.sample_uniform(gen, shape[:-2] + shape[-1:], c)
         fwd = ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)
         inv = ntt.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts, t.qs,
@@ -497,8 +518,26 @@ def check_flat_ntt_shapes(ctx, gen):
                 and torch.equal(back, x)):
             raise AssertionError(f"flat NTT kernels differ from their plain "
                                  f"versions at {tuple(x.shape)}")
+        splits = (params.ntt4_split_candidates(n) if c is ctx else
+                  [(1 << k, n >> k) for k in range(1, n.bit_length() - 1)])
+        for split in splits:
+            s = c.split_device_tables(split)
+            fwd4 = ntt.ntt4_fwd_fused(x, s.ntt4_psi1_mont, s.ntt4_psi2_mont,
+                                      s.ntt4_corr_mont, s.qs, s.qinv_negs)
+            inv4 = ntt.ntt4_inv_fused(x, s.ntt4_psi1_inv_mont,
+                                      s.ntt4_psi2_inv_mont,
+                                      s.ntt4_corr_inv_mont, s.n_inv_monts,
+                                      s.qs, s.qinv_negs)
+            torch.cuda.synchronize()
+            if not (torch.equal(fwd4, fwd) and torch.equal(inv4, inv)):
+                raise AssertionError(f"4-step NTT kernels at split {split} "
+                                     f"differ from the flat output at "
+                                     f"{tuple(x.shape)}")
+            n_splits += 1
     log("kernel ntt_fwd / ntt_inv: exact and round-tripping also at "
-        + ", ".join(str(shape) for _, shape in cases))
+        + ", ".join(str(shape) for _, shape in cases)
+        + f"; ntt4_fwd / ntt4_inv exact against them at {n_splits} "
+        "(shape, split) points")
 
 
 def check_accum_variants(acc, ct, w, t, int_rate):

@@ -3,10 +3,13 @@
 Wrappers over `csrc/ntt.cu` (the flat kernels, which replace the JAX
 package's Pallas `ntt_fwd_fused` / `ntt_inv_fused`) and `csrc/ntt4.cu` (the
 4-step kernels, which replace `ntt4_fwd_fused` / `ntt4_inv_fused`; N = n1 *
-n2 is read off the tables, and `radix` and `block_b` are launch geometry
-that never changes a bit).  On a CUDA tensor a wrapper launches the kernel
-or raises; on a CPU tensor it runs the plain version in `ref.py`.  Each
-wrapper counts its kernel launches in its `launches` attribute.
+n2 is read off the tables).  Both run the register passes of
+`csrc/ntt_pass.cuh`, one thread block a (row, limb) pair.  The 4-step
+wrappers still take the JAX package's `radix` and `block_b`: they are
+checked, `radix` groups the plain version's stages, and neither changes
+the kernel's launch or any bit.  On a CUDA tensor a wrapper launches the
+kernel or raises; on a CPU tensor it runs the plain version in `ref.py`.
+Each wrapper counts its kernel launches in its `launches` attribute.
 """
 from __future__ import annotations
 
@@ -15,9 +18,29 @@ import torch
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref as _ref
 
-MAX_LOG_N = 14   # N = 16384 needs 66 KiB of shared memory a block
+MAX_LOG_N = 14   # ntt_pass.cuh's kMaxLogN
 MAX_SMEM_BYTES = 232_448   # the most shared memory an H100 block can use
-MAX_BLOCK_B = 8            # ntt4.cu's kMaxBlockB
+MAX_BLOCK_B = 8   # the largest block_b a 4-step config may name; the
+                  # kernel runs one (row, limb) pair a block whatever it says
+
+
+def _slot(e: int) -> int:
+    return e + e // 32
+
+
+def smem_bytes(n: int, split: tuple[int, int] | None = None) -> int:
+    """Shared memory of one block of the flat NTT kernels at N = n (split
+    None) or of the 4-step kernels at split (n1, n2): the row in
+    ntt_pass.cuh's padded layout, a pad word after every 32 (33,788 bytes
+    at N = 8192; none at N <= 32, where one register pass needs no
+    exchange), and for the 4-step the block's copy of psi1 and psi2 in the
+    same layout, psi2 from n1 rounded up to 32 words (ntt4.cu's
+    table_words: 1,184 bytes at 32 x 256)."""
+    row = 0 if n <= 32 else 4 * (_slot(n - 1) + 1)
+    if split is None:
+        return row
+    n1, n2 = split
+    return row + 4 * (_slot(-(-n1 // 32) * 32 + n2 - 1) + 1)
 
 
 def _check(name, x, tables):
@@ -74,7 +97,7 @@ def ntt_inv_fused(x, psi_inv_rev_mont, n_inv_monts, qs, qinv_negs):
 def _check4(name, x, tables, psi1, psi2, radix, block_b):
     """_check of x and the [L] / [L, N] tables, plus the sub-transform
     tables psi1 [L, n1] and psi2 [L, n2] with n1 * n2 = N, the radix and
-    block_b; returns (l, log_n, log_n1)."""
+    block_b a config names; returns (l, log_n, log_n1)."""
     l, log_n = _check(name, x, tables)
     n = x.shape[-1]
     n1, n2 = psi1.shape[-1], psi2.shape[-1]
@@ -88,14 +111,15 @@ def _check4(name, x, tables, psi1, psi2, radix, block_b):
                              f"not match x {tuple(x.shape)}")
     log_n1 = _build.log2_exact(n1, f"{name}: n1")
     _build.log2_exact(n2, f"{name}: n2")
+    if smem_bytes(n, (n1, n2)) > MAX_SMEM_BYTES:
+        raise ValueError(f"{name}: split {n1} x {n2} needs "
+                         f"{smem_bytes(n, (n1, n2))} bytes of shared "
+                         f"memory, over {MAX_SMEM_BYTES}")
     if radix not in (2, 4):
         raise ValueError(f"{name}: radix must be 2 or 4, got {radix}")
     if not 1 <= block_b <= MAX_BLOCK_B:
         raise ValueError(f"{name}: block_b must be in [1, {MAX_BLOCK_B}], "
                          f"got {block_b}")
-    if 4 * n * block_b > MAX_SMEM_BYTES:
-        raise ValueError(f"{name}: block_b={block_b} rows of N={n} exceed "
-                         f"{MAX_SMEM_BYTES} bytes of shared memory")
     return l, log_n, log_n1
 
 
@@ -103,8 +127,8 @@ def ntt4_fwd_fused(x, psi1_mont, psi2_mont, corr_mont, qs, qinv_negs, *,
                    radix: int = 2, block_b: int = 1):
     """4-step forward NTT, bit-identical to ntt_fwd_fused: int32[..., L, N]
     natural order -> bit-reversed.  psi1_mont int32[L, n1], psi2_mont
-    int32[L, n2], corr_mont int32[L, N]; block_b (row, limb) pairs a thread
-    block."""
+    int32[L, n2], corr_mont int32[L, N]; radix and block_b as the module
+    docstring says."""
     if x.device.type == "cpu":
         return _ref.ntt4_fwd_fused(x, psi1_mont, psi2_mont, corr_mont, qs,
                                    qinv_negs, radix)
@@ -117,7 +141,7 @@ def ntt4_fwd_fused(x, psi1_mont, psi2_mont, corr_mont, qs, qinv_negs, *,
     if rows:
         _build.launch("ntt4", "ntt4_fwd_launch", out, x, psi1_mont,
                       psi2_mont, corr_mont, qs, qinv_negs, rows, l, log_n,
-                      log_n1, block_b, radix)
+                      log_n1)
         ntt4_fwd_fused.launches += 1
     return out
 
@@ -141,7 +165,7 @@ def ntt4_inv_fused(x, psi1_inv_mont, psi2_inv_mont, corr_inv_mont,
     if rows:
         _build.launch("ntt4", "ntt4_inv_launch", out, x, psi1_inv_mont,
                       psi2_inv_mont, corr_inv_mont, qs, qinv_negs,
-                      n_inv_monts, rows, l, log_n, log_n1, block_b, radix)
+                      n_inv_monts, rows, l, log_n, log_n1)
         ntt4_inv_fused.launches += 1
     return out
 

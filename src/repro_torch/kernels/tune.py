@@ -8,11 +8,13 @@ hand-written kernels and never between a kernel and the plain version (the
 tensor's device decides that, as everywhere in the port).
 
   * **config**: `KernelConfig(block_b, ntt4_split, radix)`, with the JAX
-    package's fields and JSON.  `block_b` counts (row, limb) pairs a thread
-    block for the 4-step kernels; the flat NTT runs at its one geometry
-    (`default_config`), which no field changes yet.  Only the NTT ops are
-    tuned: the other five kernels have no geometry parameter, so they are
-    not ops of the tuner.
+    package's fields and JSON.  Only `ntt4_split` changes a launch: both
+    NTT kernels run the register passes of `csrc/ntt_pass.cuh`, one thread
+    block a (row, limb) pair, so `block_b` and `radix` are checked (a cache
+    may name them) and change no launch; `radix` only groups the plain
+    version's stages on the CPU.  Only the NTT ops are tuned: the other
+    five kernels have no geometry parameter, so they are not ops of the
+    tuner.
   * **backends**: "flat" is the flat kernel of `csrc/ntt.cu`, "ntt4" the
     4-step kernels of `csrc/ntt4.cu`.
   * **cache**: winners keyed `op|N<n>|L<l>|B<b>|<platform>`, the platform
@@ -27,14 +29,16 @@ tensor's device decides that, as everywhere in the port).
   * **sweep**: `sweep_op` times every candidate that the roofline model
     (the H100's 3.35 TB/s, one launch a dispatch) does not rule out.  The
     default is never pruned and always measured, so the winner's time is
-    at most the default's.  In today's candidate space the pruning is
-    inert: the model puts every candidate within 2.1x of every other
-    (flat 1.375, 4-step radix 4 2.125, radix 2 2.875 times the memory time
-    at N=8192), under PRUNE_RATIO, so every candidate is measured.  The
-    model is an order, not a time: on the H100 the register-pass flat
-    kernel takes about 1.6x the memory time and the 4-step kernels
-    4.3-7.7x (chip_smoke.py).  Pruning starts to matter when a geometry
-    parameter of the flat NTT widens the space.
+    at most the default's.  The space is the flat kernel and the 4-step
+    kernel at each `ntt4_split_candidates(N)` split (four candidates at
+    N=8192), every one a different launch: each (split, radix, block_b)
+    that named the same launch would only time one kernel twice.  The
+    pruning is inert in this space: the model gives every split the same
+    time (the flat kernel's passes plus the twist's corr read, 1.875
+    against the flat kernel's 1.375 times the memory time at N=8192),
+    under PRUNE_RATIO, so every candidate is measured.  The model is an
+    order, not a time (chip_smoke.py measures both kernels beside their
+    bound).
 """
 from __future__ import annotations
 
@@ -51,8 +55,7 @@ from repro_torch.kernels import ntt as _ntt
 
 OPS = ("ntt_fwd", "ntt_inv")
 BACKENDS = ("flat", "ntt4")
-BLOCK_CANDIDATES = (1, 2, 4)
-RADIX_CANDIDATES = (2, 4)
+RADICES = (2, 4)   # a config's radix: the plain version's stage grouping
 CACHE_VERSION = 1
 
 # roofline pruning: a candidate modelled at more than PRUNE_RATIO x the best
@@ -60,16 +63,18 @@ CACHE_VERSION = 1
 PRUNE_RATIO = 3.0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 LAUNCH_OVERHEAD_S = 5e-6    # one kernel launch a dispatch
-FLAT_STAGES_PER_PASS = 5    # ntt.cu's kLogElems: 32 residues a thread
+STAGES_PER_PASS = 5         # ntt_pass.cuh's kLogElems: 32 residues a thread
 
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
     """Launch geometry of one kernel invocation, never arithmetic.
 
-    block_b: (row, limb) pairs a thread block (4-step NTT kernels).
+    block_b: (row, limb) pairs a thread block in the JAX package's
+      kernels, 1 .. ntt.MAX_BLOCK_B; the port's kernels run one a block.
     ntt4_split: (n1, n2) factorization of N, None = params.ntt4_split.
-    radix: butterfly radix of the 4-step sub-transforms (2 or 4).
+    radix: butterfly radix of the plain 4-step version's sub-transforms
+      (2 or 4); the kernel's register passes have none.
     """
 
     block_b: int
@@ -152,15 +157,19 @@ def _validate(op: str, n: int, backend: str, config: KernelConfig) -> None:
         raise ValueError(f"unknown op {op!r}")
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not one of {op}'s")
-    if config.block_b < 1 or config.radix not in RADIX_CANDIDATES:
+    if not 1 <= config.block_b <= _ntt.MAX_BLOCK_B or \
+            config.radix not in RADICES:
         raise ValueError(f"bad config {config}")
-    if backend == "ntt4" and (config.block_b > _ntt.MAX_BLOCK_B or
-                              4 * n * config.block_b > _ntt.MAX_SMEM_BYTES):
-        raise ValueError(f"block_b {config.block_b} does not fit one "
-                         f"thread block at N={n}")
+    if n > 1 << _ntt.MAX_LOG_N:
+        raise ValueError(f"N={n} is beyond the NTT kernels' 2**"
+                         f"{_ntt.MAX_LOG_N}")
     split = config.ntt4_split
     if split is not None and (len(split) != 2 or split[0] * split[1] != n):
         raise ValueError(f"split {split} does not factor N={n}")
+    if backend == "ntt4" and _ntt.smem_bytes(
+            n, split or _params.ntt4_split(n)) > _ntt.MAX_SMEM_BYTES:
+        raise ValueError(f"the 4-step kernel's shared memory at N={n} "
+                         "exceeds one block's")
 
 
 def put(op: str, n: int, l: int, b: int, platform: str, backend: str,
@@ -264,40 +273,28 @@ class Candidate:
 
 
 def candidates(op: str, n: int, l: int, b: int) -> list[Candidate]:
-    """The swept space of one point, the default first: the flat kernel at
-    its one geometry and the 4-step kernels at every
-    `ntt4_split_candidates(N)` x radix x block_b, block_b capped by the
-    point's (row, limb) pairs and by the block's shared memory."""
-    out = [Candidate("flat", default_config(op))]
-    blocks = [blk for blk in BLOCK_CANDIDATES
-              if blk <= max(b * l, 1) and 4 * n * blk <= _ntt.MAX_SMEM_BYTES]
-    for split in _params.ntt4_split_candidates(n):
-        for radix in RADIX_CANDIDATES:
-            for blk in blocks:
-                out.append(Candidate("ntt4", KernelConfig(
-                    block_b=blk, ntt4_split=split, radix=radix)))
-    return out
+    """The swept space of one point, the default first: the flat kernel and
+    the 4-step kernel at every `ntt4_split_candidates(N)`, the only field
+    that changes its launch."""
+    return [Candidate("flat", default_config(op))] + [
+        Candidate("ntt4", KernelConfig(block_b=1, ntt4_split=split))
+        for split in _params.ntt4_split_candidates(n)]
 
 
 def _model_time_s(n: int, l: int, b: int, cand: Candidate) -> float:
     """Roofline estimate of one candidate: device-memory traffic (each
-    element read and written once) over 3.35 TB/s, scaled by the passes
-    over shared memory of the NTT variants (an eighth of the traffic
-    each), plus one launch.  It only has to be right in order: what is
-    PRUNE_RATIO x the best estimate is not measured."""
+    element read and written once) over 3.35 TB/s, scaled by the register
+    passes both kernels run (csrc/ntt_pass.cuh: at most 5 stages a pass,
+    an eighth of the traffic each), plus, for the 4-step kernel, the
+    twist's corr read (4 bytes an element, half the row's traffic), plus
+    one launch.  It only has to be right in order: what is PRUNE_RATIO x
+    the best estimate is not measured."""
     mem_s = 8 * b * l * n / HBM_BYTES_PER_S
+    passes = math.ceil(math.log2(n) / STAGES_PER_PASS)
+    scale = 1.0 + passes / 8.0
     if cand.backend == "ntt4":
-        n1, n2 = cand.config.ntt4_split or _params.ntt4_split(n)
-        lg1, lg2 = math.log2(n1), math.log2(n2)
-        stages = lg1 + lg2
-        if cand.config.radix == 4:
-            stages = math.ceil(lg1 / 2) + math.ceil(lg2 / 2)
-        # one more pass for the correction table
-        mem_s *= 1.0 + stages / 8.0 + 0.25
-    else:
-        # csrc/ntt.cu: register passes of at most 5 stages each
-        mem_s *= 1.0 + math.ceil(math.log2(n) / FLAT_STAGES_PER_PASS) / 8.0
-    return mem_s + LAUNCH_OVERHEAD_S
+        scale += 0.5
+    return mem_s * scale + LAUNCH_OVERHEAD_S
 
 
 # ---------------------------------------------------------------------------

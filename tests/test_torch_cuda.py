@@ -87,9 +87,8 @@ def test_kernels_match_plain_versions(cuda, n):
 
 @pytest.mark.parametrize("n", [256, 8192])
 def test_ntt4_kernels_match_plain_versions(cuda, n):
-    """Every split x radix x block_b of both 4-step kernels against the
-    plain 4-step version and the flat NTT, at B=5 (10 (row, limb) pairs:
-    block_b 4 leaves a ragged last block)."""
+    """Every split the tuner sweeps, both 4-step kernels against the plain
+    4-step version and the flat NTT, at B=5 (10 (row, limb) pairs)."""
     ctx = params.make_test_context(n_poly=n, n_limbs=2, device=cuda)
     t = ctx.device_tables
     x = _residues(np.random.RandomState(n + 4), ctx, 5, cuda)
@@ -98,7 +97,7 @@ def test_ntt4_kernels_match_plain_versions(cuda, n):
                                  t.qs, t.qinv_negs)
     configs = [c.config for c in tune.candidates("ntt_fwd", n, 2, 5)
                if c.backend == "ntt4"]
-    assert len(configs) == 18
+    assert len(configs) == 3
     ops.reset_launch_counts()
     for cfg in configs:
         s = ctx.split_device_tables(cfg.ntt4_split)
@@ -116,8 +115,41 @@ def test_ntt4_kernels_match_plain_versions(cuda, n):
         assert torch.equal(fwd, flat_fwd), cfg
         assert torch.equal(inv, flat_inv), cfg
     counts = ops.launch_counts()
-    assert (counts["ntt4_fwd"], counts["ntt4_inv"]) == (18, 18)
+    assert (counts["ntt4_fwd"], counts["ntt4_inv"]) == (3, 3)
     assert counts["ntt_fwd"] == counts["ntt_inv"] == 0
+
+
+@pytest.mark.parametrize("n", [4, 32, 1024, 16384])
+def test_ntt4_kernels_at_every_split(cuda, n):
+    """Every split of N (the twist after every stage it can follow: inside
+    each register pass and on a pass edge), both directions, on rows one
+    word off the 16-byte grid as well: equal to the flat kernel's output
+    and to the plain inverse, and launched once per call."""
+    ctx = params.make_test_context(n_poly=n, n_limbs=2, device=cuda)
+    t = ctx.device_tables
+    x = _residues(np.random.RandomState(n + 5), ctx, 3, cuda)
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int32, device=cuda)
+    x_off = buf[1:].view(x.shape)
+    x_off.copy_(x)
+    flat_fwd = ntt.ntt_fwd_fused(x, t.psi_rev_mont, t.qs, t.qinv_negs)
+    flat_inv = ref.ntt_inv_fused(x, t.psi_inv_rev_mont, t.n_inv_monts,
+                                 t.qs, t.qinv_negs)
+    splits = [(1 << k, n >> k) for k in range(1, n.bit_length() - 1)]
+    ops.reset_launch_counts()
+    for split in splits:
+        s = ctx.split_device_tables(split)
+        for xin in (x, x_off):
+            fwd = ntt.ntt4_fwd_fused(xin, s.ntt4_psi1_mont, s.ntt4_psi2_mont,
+                                     s.ntt4_corr_mont, s.qs, s.qinv_negs)
+            inv = ntt.ntt4_inv_fused(xin, s.ntt4_psi1_inv_mont,
+                                     s.ntt4_psi2_inv_mont,
+                                     s.ntt4_corr_inv_mont, s.n_inv_monts,
+                                     s.qs, s.qinv_negs)
+            torch.cuda.synchronize()
+            assert torch.equal(fwd, flat_fwd), split
+            assert torch.equal(inv, flat_inv), split
+    counts = ops.launch_counts()
+    assert counts["ntt4_fwd"] == counts["ntt4_inv"] == 2 * len(splits)
 
 
 def test_ntt_ops_resolve_to_the_4step_kernels_on_the_card(cuda):
@@ -146,7 +178,7 @@ def test_ntt_ops_resolve_to_the_4step_kernels_on_the_card(cuda):
             "weighted_accum_chunks": 0, "mod_lift": 0}
         gen = torch.Generator(device=cuda).manual_seed(1)
         res = tune.sweep_op("ntt_inv", ctx, 3, gen, reps=2)
-        assert res.platform == "cuda" and res.n_candidates == 19
+        assert res.platform == "cuda" and res.n_candidates == 4
         assert res.tuned_ms <= res.default_ms
     finally:
         tune.clear_cache()
@@ -474,14 +506,15 @@ def test_wrappers_raise_on_what_they_do_not_take(cuda):
         ntt.ntt4_fwd_fused(x, *ntt4, radix=8)
     with pytest.raises(ValueError, match="block_b"):
         ntt.ntt4_fwd_fused(x, *ntt4, block_b=9)
-    big = params.make_test_context(n_poly=16384, n_limbs=2,
-                                   device=cuda).device_tables
-    with pytest.raises(ValueError, match="shared memory"):
-        ntt.ntt4_fwd_fused(torch.zeros(1, 2, 16384, dtype=torch.int32,
-                                       device=cuda),
-                           big.ntt4_psi1_mont, big.ntt4_psi2_mont,
-                           big.ntt4_corr_mont, big.qs, big.qinv_negs,
-                           block_b=4)
+    # N beyond the kernels' 2**14 (their padded shared row) is refused
+    # before any launch; block_b no longer sizes shared memory
+
+    def zeros(*shape):
+        return torch.zeros(*shape, dtype=torch.int32, device=cuda)
+
+    with pytest.raises(ValueError, match="limit"):
+        ntt.ntt4_fwd_fused(zeros(1, 2, 32768), zeros(2, 128), zeros(2, 256),
+                           zeros(2, 32768), zeros(2), zeros(2))
     with pytest.raises(ValueError, match="on cpu"):
         pointwise.mul_add_fused(x, x, x, t.qs.cpu(), t.qinv_negs)
     with pytest.raises(ValueError, match="aligned"):

@@ -3,8 +3,8 @@
 What the JAX package's tests/test_tune.py checks on the CPU, for the port:
 shape keys and the config's JSON; the cache's save / load round trip; stale
 entries (another platform, an unknown op, the JAX package's backend names, a
-malformed config, a block_b no kernel runs) skipped one by one, so the JAX
-package's own `tuning/cpu.json` loads nothing; a missing or unreadable
+malformed config, a block_b or N no kernel runs) skipped one by one, so the
+JAX package's own `tuning/cpu.json` loads nothing; a missing or unreadable
 file; the generation counter; resolve's hit and miss; the candidate space
 (the NTTs only: the other kernels are not tuned) and the roofline pruning,
 inert in today's space and never pruning the default; a sweep on the CPU.
@@ -104,10 +104,10 @@ STALE = {
                   {"block_b": 1, "ntt4_split": [32, 8], "radix": 8}),
     "split not of N": ("ntt_fwd|N256|L2|B5|cpu", "ntt4",
                        {"block_b": 1, "ntt4_split": [16, 8]}),
-    "block_b over ntt4.cu's kMaxBlockB": ("ntt_fwd|N256|L2|B5|cpu", "ntt4",
-                                          {"block_b": 16}),
-    "block_b over shared memory": ("ntt_fwd|N8192|L2|B11328|cpu", "ntt4",
-                                   {"block_b": 8}),
+    "block_b over ntt.MAX_BLOCK_B": ("ntt_fwd|N256|L2|B5|cpu", "ntt4",
+                                     {"block_b": 16}),
+    "N over the kernels' 2**14": ("ntt_fwd|N32768|L2|B5|cpu", "ntt4",
+                                  {"block_b": 1, "ntt4_split": [128, 256]}),
     "malformed key": ("ntt_fwd|N256|cpu", "ntt4", CFG4.to_json()),
 }
 
@@ -179,12 +179,21 @@ def test_put_refuses_what_no_kernel_runs():
         tune.put("weighted_sum", 256, 2, 5, "cpu", "ntt4", CFG4)
     with pytest.raises(ValueError):
         tune.put("ntt_fwd", 512, 2, 5, "cpu", "ntt4", CFG4)
-    with pytest.raises(ValueError, match="does not fit"):
+    with pytest.raises(ValueError, match="bad config"):
         tune.put("ntt_fwd", 256, 2, 5, "cpu", "ntt4",
                  tune.KernelConfig(block_b=ntt.MAX_BLOCK_B + 1))
-    with pytest.raises(ValueError, match="does not fit"):
-        tune.put("ntt_inv", 16384, 2, 5, "cpu", "ntt4",
-                 tune.KernelConfig(block_b=4))
+    # the kernels' padded shared row exists up to N = 2**14; block_b no
+    # longer grows it
+    tune.put("ntt_inv", 16384, 2, 5, "cpu", "ntt4",
+             tune.KernelConfig(block_b=4))
+    assert ntt.smem_bytes(8192) == 33_788 and ntt.smem_bytes(32) == 0
+    # the 4-step's row plus its shared psi1 / psi2 copy (ntt4.cu)
+    assert ntt.smem_bytes(8192, (32, 256)) == 33_788 + 1_184
+    assert ntt.smem_bytes(4, (2, 2)) == 4 * 35
+    assert ntt.smem_bytes(16384) == 67_580 <= ntt.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="beyond"):
+        tune.put("ntt_inv", 32768, 2, 5, "cpu", "ntt4",
+                 tune.KernelConfig(block_b=1, ntt4_split=(128, 256)))
 
 
 # ---------------------------------------------------------------------------
@@ -193,17 +202,22 @@ def test_put_refuses_what_no_kernel_runs():
 
 
 def test_candidates_at_full_width():
+    """The flat kernel and the 4-step kernel at each candidate split: the
+    split is the only field that changes a launch (radix and block_b name
+    the same kernel), so each candidate is a different launch."""
     cands = tune.candidates("ntt_fwd", 8192, 2, 11328)
-    assert len(cands) == 19 and len(set(cands)) == 19
+    assert len(cands) == 4 and len(set(cands)) == 4
     assert cands[0] == tune.Candidate("flat", tune.KernelConfig(block_b=1))
+    assert [c.config for c in cands[1:]] == [
+        tune.KernelConfig(block_b=1, ntt4_split=split, radix=2)
+        for split in ((32, 256), (64, 128), (128, 64))]
     assert all(c.backend == "ntt4" for c in cands[1:])
-    assert {c.config.ntt4_split for c in cands[1:]} == {
-        (32, 256), (64, 128), (128, 64)}
-    assert {c.config.radix for c in cands[1:]} == {2, 4}
-    assert {c.config.block_b for c in cands[1:]} == {1, 2, 4}
-    # block_b is capped by the (row, limb) pairs and by shared memory
-    assert len(tune.candidates("ntt_inv", 8192, 2, 1)) == 1 + 3 * 2 * 2
-    assert len(tune.candidates("ntt_fwd", 16384, 2, 100)) == 1 + 3 * 2 * 2
+    # the same space at every batch and up to N = 16384
+    for op, n, b in (("ntt_inv", 8192, 1), ("ntt_fwd", 16384, 100),
+                     ("ntt_fwd", 4, 1)):
+        got = tune.candidates(op, n, 2, b)
+        assert [c.config.ntt4_split for c in got[1:]] == \
+            list(params.ntt4_split_candidates(n))
 
 
 @pytest.mark.parametrize("op", ["mul_add", "mod_lift", "weighted_sum",
@@ -232,17 +246,13 @@ def test_model_orders_and_pruning_never_drops_the_default(monkeypatch):
     n, l, b = 8192, 2, 11328
     cands = tune.candidates("ntt_fwd", n, l, b)
     est = {c: tune._model_time_s(n, l, b, c) for c in cands}
-    r2 = tune.Candidate("ntt4", tune.KernelConfig(1, (64, 128), 2))
-    r4 = tune.Candidate("ntt4", tune.KernelConfig(1, (64, 128), 4))
-    assert est[r4] < est[r2]
-    # the flat kernel's three register passes against the 4-step radix 4
-    # and radix 2 stage passes, in memory times (tune's docstring)
+    # both kernels' three register passes, the 4-step's plus its corr
+    # read, in memory times (tune's docstring); every split alike
     mem = 8 * b * l * n / tune.HBM_BYTES_PER_S
-    ratio = {c: (est[c] - tune.LAUNCH_OVERHEAD_S) / mem
-             for c in (cands[0], r4, r2)}
-    assert ratio == pytest.approx({cands[0]: 1.375, r4: 2.125, r2: 2.875})
+    ratio = [(est[c] - tune.LAUNCH_OVERHEAD_S) / mem for c in cands]
+    assert ratio == pytest.approx([1.375, 1.875, 1.875, 1.875])
     # today's space is inside the ratio: the pruning is inert
-    assert max(est.values()) < 2.1 * min(est.values()) < \
+    assert max(est.values()) < 1.4 * min(est.values()) < \
         tune.PRUNE_RATIO * min(est.values())
     ctx = _ctx()
     full = tune.sweep_op("ntt_fwd", ctx, 4, torch.Generator().manual_seed(0),
@@ -266,7 +276,7 @@ def test_sweep_on_cpu_records_its_winner(op):
     assert (res.op, res.n, res.l, res.b, res.platform) == \
         (op, 256, 2, 4, "cpu")
     assert res.tuned_ms <= res.default_ms
-    assert res.n_candidates == 19
+    assert res.n_candidates == 4
     assert tune.resolve(op, 256, 2, 4, "cpu") == \
         (res.winner.backend, res.winner.config)
     row = res.to_row()
@@ -331,8 +341,12 @@ def _record_ntt_keys(monkeypatch):
 
 
 def _force_ntt4(keys):
-    """An ntt4 entry for every key, cycling through the 18 geometries."""
-    geos = [c.config for c in tune.candidates("ntt_fwd", 256, 2, 100)[1:]]
+    """An ntt4 entry for every key, cycling through every config a cache
+    may name at N=256: 3 splits x radix {2, 4} x block_b {1, 2, 4} (the
+    plain version groups its stages by radix)."""
+    geos = [tune.KernelConfig(block_b=blk, ntt4_split=split, radix=radix)
+            for split in params.ntt4_split_candidates(256)
+            for radix in tune.RADICES for blk in (1, 2, 4)]
     for i, key in enumerate(sorted(set(keys))):
         tune.put(*key, "ntt4", geos[i % len(geos)])
 
