@@ -26,6 +26,10 @@ their global chunk ids, so a JAX server expands the same blob unchanged.
 Data moves between slots only where decrypt gathers the limb shards (CRT
 decode needs every limb) and where a streaming ingest hands its aggregate
 out; `ShardedHe.gathers` counts both.
+
+While obs is enabled each dispatch (keygen, the four encrypt entry points,
+decrypt, weighted_sum, weighted_accum, weighted_accum_chunks) runs under an
+`obs.kernel_launch("sharded.<op>")` that waits for its blocks' devices.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ckks import cipher, encoding
 from repro_torch.core.ckks.cipher import Ciphertext
 from repro_torch.core.ckks.params import CkksContext
@@ -285,11 +290,12 @@ class ShardedHe:
         are bit-identical to it.  Every int32[L, N] component is cut along
         the model axis and repeated on every data row."""
         n = self.ctx.n_poly
-        s_sym = cipher.sample_ternary(gen, (n,), self.ctx.device)
-        a = cipher.sample_uniform(gen, (n,), self.ctx)
-        e_sym = cipher.sample_gaussian(gen, (n,), self.ctx.device,
-                                       self.ctx.error_sigma)
-        return self.keygen_from_samples(s_sym, a, e_sym)
+        with obs.kernel_launch("sharded.keygen") as kl:
+            s_sym = cipher.sample_ternary(gen, (n,), self.ctx.device)
+            a = cipher.sample_uniform(gen, (n,), self.ctx)
+            e_sym = cipher.sample_gaussian(gen, (n,), self.ctx.device,
+                                           self.ctx.error_sigma)
+            return kl.done(self.keygen_from_samples(s_sym, a, e_sym))
 
     def keygen_from_samples(self, s_sym, a, e_sym) -> tuple[dict, dict]:
         """cipher.keygen_from_samples per slot on its limbs of the uniform
@@ -314,13 +320,21 @@ class ShardedHe:
         """float32[B, slots] -> fresh ciphertext: encode on the context's
         device, then encrypt_coeffs; bit-identical to
         cipher.encrypt_values."""
-        return self.encrypt_coeffs(pk, encoding.encode(values, self.ctx), gen,
-                                   scale=self.ctx.delta)
+        with obs.kernel_launch("sharded.encrypt_values",
+                               rows=int(values.shape[0])) as kl:
+            return kl.done(self._encrypt_coeffs(
+                pk, encoding.encode(values, self.ctx), gen, self.ctx.delta))
 
     def encrypt_coeffs(self, pk: dict, m_coeff, gen: torch.Generator,
                        scale: float | None = None) -> Ciphertext:
         """Public-key encryption of int32[B, L, N] residues with the draws
         of cipher.encrypt_coeffs; chunks over data, limbs over model."""
+        with obs.kernel_launch("sharded.encrypt_coeffs",
+                               rows=int(m_coeff.shape[0])) as kl:
+            return kl.done(self._encrypt_coeffs(pk, m_coeff, gen, scale))
+
+    def _encrypt_coeffs(self, pk: dict, m_coeff, gen: torch.Generator,
+                        scale: float | None) -> Ciphertext:
         b, n = m_coeff.shape[0], self.ctx.n_poly
         dev, sigma = self.ctx.device, self.ctx.error_sigma
         u = cipher.sample_ternary(gen, (b, n), dev)
@@ -359,14 +373,26 @@ class ShardedHe:
         """float32[B, slots] -> seeded secret-key ciphertext, bit-identical
         to cipher.encrypt_values_seeded (same noise draws, same public `a`
         stream for a_seed and derive)."""
-        return self.encrypt_coeffs_seeded(
-            sk, encoding.encode(values, self.ctx), gen, a_seed,
-            scale=self.ctx.delta, derive=derive)
+        with obs.kernel_launch("sharded.encrypt_values_seeded",
+                               rows=int(values.shape[0])) as kl:
+            return kl.done(self._encrypt_coeffs_seeded(
+                sk, encoding.encode(values, self.ctx), gen, a_seed,
+                self.ctx.delta, derive))
 
     def encrypt_coeffs_seeded(self, sk: dict, m_coeff, gen: torch.Generator,
                               a_seed: int, scale: float | None = None,
                               derive: int = cipher.DERIVE_FOLD_CHUNK
                               ) -> Ciphertext:
+        """Seeded encryption of int32[B, L, N] residues with the draws of
+        cipher.encrypt_coeffs_seeded."""
+        with obs.kernel_launch("sharded.encrypt_coeffs_seeded",
+                               rows=int(m_coeff.shape[0])) as kl:
+            return kl.done(self._encrypt_coeffs_seeded(
+                sk, m_coeff, gen, a_seed, scale, derive))
+
+    def _encrypt_coeffs_seeded(self, sk: dict, m_coeff, gen: torch.Generator,
+                               a_seed: int, scale: float | None,
+                               derive: int) -> Ciphertext:
         e = cipher.sample_gaussian(gen, (m_coeff.shape[0], self.ctx.n_poly),
                                    self.ctx.device, self.ctx.error_sigma)
         return self.encrypt_coeffs_seeded_from_samples(sk, m_coeff, e, a_seed,
@@ -421,8 +447,9 @@ class ShardedHe:
                 Ciphertext(x.blocks[d][m])),)
 
         shape = tuple(x.shape[:-2]) + (x.shape[-1],)
-        coeffs, = self.map_slots(body, (shape, 0, -2, x.rows))
-        return self.gather(coeffs)
+        with obs.kernel_launch("sharded.decrypt") as kl:
+            coeffs, = self.map_slots(body, (shape, 0, -2, x.rows))
+            return kl.done(self.gather(coeffs))
 
     def decrypt_values(self, sk: dict, ct: Ciphertext) -> torch.Tensor:
         """-> float32[B, slots] (torch decode path, 2 limbs)."""
@@ -450,7 +477,10 @@ class ShardedHe:
             return (ops.weighted_sum(x.blocks[d][m], w[:, lo:hi].to(c.device),
                                      c, limb_axis=-3),)
 
-        data, = self.map_slots(body, (x.shape[1:], 0, -3, x.rows))
+        with obs.kernel_launch("sharded.weighted_sum",
+                               n_clients=int(cts.data.shape[0])) as kl:
+            data, = kl.done(self.map_slots(body,
+                                           (x.shape[1:], 0, -3, x.rows)))
         return Ciphertext(data=data, scale=cts.scale * self.ctx.delta)
 
     def weighted_accum(self, acc: Ciphertext, ct: Ciphertext,
@@ -473,7 +503,8 @@ class ShardedHe:
                                        w[lo:hi].to(c.device), c,
                                        limb_axis=-3),)
 
-        data, = self.map_slots(body, (x.shape, 0, -3, x.rows))
+        with obs.kernel_launch("sharded.weighted_accum") as kl:
+            data, = kl.done(self.map_slots(body, (x.shape, 0, -3, x.rows)))
         return Ciphertext(data=data, scale=acc.scale)
 
     def weighted_accum_chunks(self, accs, cts, w_mont, limb_axis: int = -2,
@@ -498,5 +529,8 @@ class ShardedHe:
                 self.slot_ctx(d, m, l), limb_axis=limb_axis,
                 out=None if o is None else o.blocks[d][m]),)
 
-        res, = self.map_slots(body, (x.shape, 0, limb_axis, x.rows))
+        with obs.kernel_launch("sharded.weighted_accum_chunks",
+                               rows=int(cts.shape[0])) as kl:
+            res, = kl.done(self.map_slots(body,
+                                          (x.shape, 0, limb_axis, x.rows)))
         return res if o is None else o

@@ -88,3 +88,13 @@ def build_mask(sens_vec, strategy: str, p: float, *, offsets=None,
         return torch.zeros(n, dtype=torch.bool, device=s.device)
     raise ValueError(f"unknown selection strategy {strategy!r}; "
                      f"choose from {STRATEGIES}")
+
+
+def mask_stats(mask) -> dict:
+    """{"n_total", "n_enc", "ratio"} of a bool tensor (any device) or numpy
+    mask."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.detach().cpu().numpy()
+    mask = np.asarray(mask, dtype=bool)
+    return {"n_total": int(mask.size), "n_enc": int(mask.sum()),
+            "ratio": float(mask.mean())}

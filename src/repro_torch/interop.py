@@ -3,11 +3,12 @@
 The JAX package holds residues as u32 arrays; the port holds them as int32
 tensors with the same bits.  These functions take and give numpy arrays
 (`np.asarray` of JAX outputs), so this module imports no JAX: keys,
-ciphertexts, protected and seeded updates and context primes cross over
-unchanged, and so do a JAX `transcipher.provision`'s materials, so the port
-ingests masked blobs of a JAX-provisioned client.  A `StreamIngest`
-checkpoint needs no converter: its `export_state` arrays have the JAX
-package's layout in both packages.
+threshold and Shamir key shares, ciphertexts, protected and seeded updates
+and context primes cross over unchanged, and so do a JAX
+`transcipher.provision`'s materials, so the port ingests masked blobs of a
+JAX-provisioned client.  A `StreamIngest` checkpoint needs no converter:
+its `export_state` arrays have the JAX package's layout in both packages,
+and `repro_torch.ckpt` writes the JAX package's checkpoint format.
 """
 from __future__ import annotations
 
@@ -114,6 +115,32 @@ def client_materials_from_np(seed_ct_data, seed_ct_scale: float, device, *,
         derive=int(derive), scale=float(scale),
         seed_ct=ciphertext_from_np(seed_ct_data, seed_ct_scale, device),
         escrow_a_seed=int(escrow_a_seed))
+
+
+def threshold_parties_from_np(parties, device) -> list:
+    """A JAX `threshold_keygen`'s parties as (index, u32 s_mont [L, N])
+    pairs -> the port's `ThresholdParty` list on `device`."""
+    from repro_torch.core.ckks.threshold import ThresholdParty
+    return [ThresholdParty(index=int(i), s_mont=residues_from_np(s, device))
+            for i, s in parties]
+
+
+def threshold_parties_to_np(parties) -> list:
+    """-> [(index, u32 s_mont)], the fields of JAX `ThresholdParty`s."""
+    return [(p.index, residues_to_np(p.s_mont)) for p in parties]
+
+
+def shamir_parties_from_np(parties, device) -> list:
+    """A JAX `shamir_share_secret`'s parties as (index, u32 share [L, N])
+    pairs -> the port's `ShamirParty` list on `device`."""
+    from repro_torch.core.ckks.threshold import ShamirParty
+    return [ShamirParty(index=int(i), share=residues_from_np(s, device))
+            for i, s in parties]
+
+
+def shamir_parties_to_np(parties) -> list:
+    """-> [(index, u32 share)], the fields of JAX `ShamirParty`s."""
+    return [(p.index, residues_to_np(p.share)) for p in parties]
 
 
 def check_context(ctx: CkksContext, primes, n_poly: int | None = None,

@@ -17,13 +17,20 @@ dispatch's (op, N, L, B, device type): a miss runs the flat kernel, an
 with the same bits either way.  The limb-wise helpers (`mod_add`,
 `mod_sub`, `mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of
 their own and are plain torch ops.
+
+While obs is enabled (`obs.configure(enabled=True)`), every op with a kernel
+goes through `obs.timed_kernel`: synchronized before and after, timed,
+counted in `kernel_op_launches_total` and traced as an `he.<op>` span (the
+NTTs with the tuner's resolved config).  Disabled, the call is the bare op.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core.ckks import params as _params
 from repro_torch.kernels import he_agg as _he_agg
 from repro_torch.kernels import lift as _lift
@@ -120,6 +127,18 @@ def run_config(op, backend, cfg, tables, x):
 # ---------------------------------------------------------------------------
 
 
+def _hooked(fn):
+    """The op as it is while obs is disabled, through obs.timed_kernel while
+    it is enabled."""
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        if not _obs.kernel_hooks_enabled():
+            return fn(*args, **kwargs)
+        return _obs.timed_kernel(fn.__name__,
+                                 functools.partial(fn, **kwargs), *args)
+    return op
+
+
 def _dispatch_ntt(op, x, ctx):
     """One NTT dispatch through the tuning cache."""
     l = x.shape[-2]
@@ -127,7 +146,10 @@ def _dispatch_ntt(op, x, ctx):
                                  math.prod(x.shape[:-2]), x.device.type)
     t = ctx.split_device_tables(cfg.ntt4_split if backend == "ntt4"
                                 else None).take(l)
-    return run_config(op, backend, cfg, t, x)
+    if not _obs.kernel_hooks_enabled():
+        return run_config(op, backend, cfg, t, x)
+    return _obs.timed_kernel(op, functools.partial(run_config, op, backend,
+                                                   cfg, t), x, config=cfg)
 
 
 def ntt_fwd(x, ctx):
@@ -141,6 +163,7 @@ def ntt_inv(x, ctx):
     return _dispatch_ntt("ntt_inv", x, ctx)
 
 
+@_hooked
 def mul_add(x, y_mont, z, ctx):
     """Fused x (*) y_mont + z.  y_mont (Montgomery form) and z broadcast to
     x's shape [..., L, N] without being copied."""
@@ -148,6 +171,7 @@ def mul_add(x, y_mont, z, ctx):
     return _pointwise.mul_add_fused(x, y_mont, z, t.qs, t.qinv_negs)
 
 
+@_hooked
 def weighted_sum(cts, w_mont, ctx, limb_axis: int = -2):
     """FedAvg aggregation: sum_i w_i (*) ct_i over the leading axis.
 
@@ -160,6 +184,7 @@ def weighted_sum(cts, w_mont, ctx, limb_axis: int = -2):
                                          t.qs, t.qinv_negs, limb_axis)
 
 
+@_hooked
 def weighted_accum(acc, ct, w_mont, ctx, limb_axis: int = -2, out=None):
     """Streaming fold acc + w (*) ct in one launch: one client folded into a
     running sum, bit-identical to weighted_sum applied in arrival order.
@@ -175,6 +200,7 @@ def weighted_accum(acc, ct, w_mont, ctx, limb_axis: int = -2, out=None):
                                            out=out)
 
 
+@_hooked
 def weighted_accum_chunks(acc, cts, w_mont, ctx, limb_axis: int = -2,
                           out=None):
     """Batched streaming flush: acc[k] + w[k] (*) ct[k] for every ready row
@@ -191,6 +217,7 @@ def weighted_accum_chunks(acc, cts, w_mont, ctx, limb_axis: int = -2,
         out=out)
 
 
+@_hooked
 def mod_lift(x, n_limbs, ctx):
     """Per-limb lift of full-range words: int32[..., N] (u32 bits, no limb
     axis: transcipher-masked coefficients or keystream pads) ->

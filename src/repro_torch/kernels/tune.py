@@ -39,6 +39,10 @@ tensor's device decides that, as everywhere in the port).
     under PRUNE_RATIO, so every candidate is measured.  The model is an
     order, not a time (chip_smoke.py measures both kernels beside their
     bound).
+  * **telemetry** (`repro_torch.obs`): each measured candidate's time in
+    `tune_candidate_seconds{op, backend}`, each sweep in
+    `tune_sweeps_total{op}`, each unreadable cache file in
+    `tune_cache_load_errors_total`.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ import warnings
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ckks import params as _params
 from repro_torch.kernels import ntt as _ntt
 
@@ -202,6 +207,7 @@ def load_cache(path: str, platform: str | None = None) -> int:
     except FileNotFoundError:
         return 0
     except (OSError, json.JSONDecodeError, AttributeError) as e:
+        obs.counter("tune_cache_load_errors_total").inc()
         warnings.warn(f"tuning cache {path!r} could not be loaded ({e!r}); "
                       "every dispatch runs its default", RuntimeWarning,
                       stacklevel=2)
@@ -396,10 +402,13 @@ def sweep_op(op: str, ctx, b: int, gen: torch.Generator, *,
                                  "default's output")
         del got
         measured[cand] = _timeit(fn, ctx.device, reps)
+        obs.histogram("tune_candidate_seconds", op=op,
+                      backend=cand.backend).observe(measured[cand])
     winner = min(measured, key=measured.get)
     tuned_ms, default_ms = measured[winner] * 1e3, measured[default] * 1e3
     put(op, n, l, b, platform, winner.backend, winner.config,
         tuned_ms=tuned_ms, default_ms=default_ms)
+    obs.counter("tune_sweeps_total", op=op).inc()
     return SweepResult(op=op, n=n, l=l, b=b, platform=platform,
                        winner=winner, tuned_ms=tuned_ms,
                        default_ms=default_ms, n_candidates=len(cands),

@@ -4,14 +4,15 @@
 Every serialized artifact that crosses the network records an entry here:
 direction, client, artifact class and byte count.  `record_blob` splits a
 frame stream into per-class entries, so the paper's communication tables
-come from real serialized sizes.  Telemetry counters (the reference mirrors
-each record into its metrics registry) are not ported yet.
+come from real serialized sizes.  Each record also adds its bytes to the
+registry series `wire_bytes_total{direction, kind}` (`repro_torch.obs`).
 """
 from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
 
+from repro_torch import obs
 from repro_torch.wire import format as wf
 
 UPLINK = "up"
@@ -45,6 +46,8 @@ class BandwidthLedger:
                nbytes: int) -> None:
         self.records.append(WireRecord(int(rnd), int(cid), direction, kind,
                                        int(nbytes)))
+        obs.counter("wire_bytes_total", direction=direction,
+                    kind=kind).inc(int(nbytes))
 
     # -- queries ------------------------------------------------------------
 

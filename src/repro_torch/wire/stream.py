@@ -54,19 +54,24 @@ Everything a rejected update could break is validated inside ingest's
 rollback scope (frame kinds, scale, dtype, shape, derive id, seed and chunk
 offset ranges, transcipher materials and their provisioned rows), before
 the flush, and a rejected update restores every escrow seed it touched.
-Not ported yet: telemetry (the counters are plain integer attributes).
+
+Telemetry: an ingest's counters are registry series labelled with its
+`ingest_id` (`wire_ingest_*`, `repro_torch.obs`), read through read-only
+properties; `ingest` runs under a `wire.ingest` span and each accumulate
+under a `weighted_accum_chunks` kernel_launch while obs is enabled.
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
+import itertools
 import struct
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core.ckks import cipher, encoding, threefry, transcipher
 from repro_torch.core.ckks.cipher import Ciphertext
 from repro_torch.core.ckks.params import CkksContext
@@ -236,11 +241,14 @@ class StreamIngest:
     (cid, round) is rejected.  `escrow_seeds` keeps each
     accepted update's escrow keystream-seed ciphertext under (cid, round).
 
-    Attributes (plain integers):
+    Attributes (read-only views of registry series labelled
+    ingest=<ingest_id>, `wire_ingest_*`):
         accum_launches: accumulate launches (one per flush with ready rows).
         peak_chunk_buffers: most decoded-but-unfolded rows ever resident.
         clients_ingested, bytes_ingested, rejected_updates: ingest counts.
     """
+
+    _ids = itertools.count()
 
     def __init__(self, ctx: CkksContext, sharded=None,
                  transcipher_materials: dict | None = None):
@@ -255,12 +263,42 @@ class StreamIngest:
         self._shape = None           # (L, N) pinned by the first chunk
         self._in_scale = None
         self._pending: list[_Ready] = []
-        self._resident = 0
-        self.accum_launches = 0
-        self.clients_ingested = 0
-        self.bytes_ingested = 0
-        self.peak_chunk_buffers = 0
-        self.rejected_updates = 0
+        self._sharded = sharded is not None
+        # one label set per ingest instance; obs.REGISTRY.total(
+        # "wire_ingest_...") sums over instances
+        self.ingest_id = str(next(self._ids))
+        lab = {"ingest": self.ingest_id}
+        self._m_launches = obs.counter("wire_ingest_accum_launches", **lab)
+        self._m_clients = obs.counter("wire_ingest_clients", **lab)
+        self._m_bytes = obs.counter("wire_ingest_bytes", **lab)
+        # decoded rows resident beside the accumulator, and their peak: a
+        # regression that buffers several updates before folding shows as
+        # peak > one update's rows
+        self._m_resident = obs.gauge("wire_ingest_resident_chunks", **lab)
+        self._m_peak = obs.gauge("wire_ingest_peak_chunk_buffers", **lab)
+        self._m_rejected = obs.counter("wire_ingest_rejected_updates", **lab)
+
+    # -- counters (registry-backed, read-only) -------------------------------
+
+    @property
+    def accum_launches(self) -> int:
+        return int(self._m_launches.value)
+
+    @property
+    def clients_ingested(self) -> int:
+        return int(self._m_clients.value)
+
+    @property
+    def bytes_ingested(self) -> int:
+        return int(self._m_bytes.value)
+
+    @property
+    def peak_chunk_buffers(self) -> int:
+        return int(self._m_peak.value)
+
+    @property
+    def rejected_updates(self) -> int:
+        return int(self._m_rejected.value)
 
     def add_transcipher_materials(self, cid: int, rnd: int,
                                   materials) -> None:
@@ -275,9 +313,8 @@ class StreamIngest:
                                                self.ctx).view(np.int32)
 
     def _note_decoded(self, n: int) -> None:
-        self._resident += n
-        self.peak_chunk_buffers = max(self.peak_chunk_buffers,
-                                      self._resident)
+        self._m_resident.add(n)
+        self._m_peak.set_max(self._m_resident.value)
 
     def _check_row(self, scale: float, dtype, shape) -> None:
         """Validate one chunk against the running aggregation: scale, u32
@@ -501,9 +538,11 @@ class StreamIngest:
                              tuple(blocks))
 
         a = grid((len(batch), l, 2, n), accs)
-        eng.weighted_accum_chunks(a, grid((len(batch), l, 2, n), cts),
-                                  grid((len(batch), l), ws), limb_axis=-3,
-                                  out=a)
+        with obs.kernel_launch("weighted_accum_chunks", rows=len(batch),
+                               sharded=self._sharded) as kl:
+            kl.done(eng.weighted_accum_chunks(
+                a, grid((len(batch), l, 2, n), cts),
+                grid((len(batch), l), ws), limb_axis=-3, out=a))
         for block, sel, rows_out in copy_back:
             block.index_copy_(0, sel, rows_out)
         self._rows.update(r.chunk_idx for r in batch)
@@ -522,7 +561,7 @@ class StreamIngest:
                     batch.append(item)
             self._pending = rest
             self._fold(batch)
-            self.accum_launches += 1
+            self._m_launches.inc()
             self._note_decoded(-len(batch))
 
     def _plain_to_device(self, arr: np.ndarray, codec: str, qscale: float):
@@ -558,6 +597,10 @@ class StreamIngest:
         The stream is validated against its own UPDATE_BEGIN header: the
         received chunk indices must be exactly {0..n_chunks-1}.  A rejected
         update raises WireError and leaves no trace in the state."""
+        with obs.span("wire.ingest", nbytes=len(blob)) as sp:
+            return self._ingest_spanned(blob, weight, sp)
+
+    def _ingest_spanned(self, blob: bytes, weight: float, sp) -> UpdateMeta:
         meta = None
         w_mont = self._w_mont(weight)
         saw_end = False
@@ -658,7 +701,7 @@ class StreamIngest:
                     self.escrow_seeds[key] = prev
             self._in_scale = prev_in_scale
             self._shape = prev_shape
-            self.rejected_updates += 1
+            self._m_rejected.inc()
             if isinstance(e, wf.WireError):
                 raise
             raise wf.WireError(f"malformed update stream: {e!r}") from e
@@ -666,13 +709,18 @@ class StreamIngest:
             self._fold_plain(self._plain_to_device(arr, codec, qscale),
                              weight)
         self.flush()
-        self.clients_ingested += 1
-        self.bytes_ingested += len(blob)
+        self._m_clients.inc()
+        self._m_bytes.inc(len(blob))
+        sp.set(cid=meta.cid, round=meta.round, n_chunks=meta.n_chunks)
         return meta
 
     def ingest_update(self, upd: ProtectedUpdate, weight: float) -> None:
         """In-memory streaming (no serialization): the caller holds the
         whole decoded update; its rows are folded in one flush."""
+        with obs.span("wire.ingest", in_memory=True):
+            self._ingest_update(upd, weight)
+
+    def _ingest_update(self, upd: ProtectedUpdate, weight: float) -> None:
         data = upd.ct.data
         if data.dtype != torch.int32 or data.dim() != 4:
             raise wf.WireError(f"update data {data.dtype} "
@@ -689,7 +737,7 @@ class StreamIngest:
         self.flush()
         self._fold_plain(upd.plain.to(self.ctx.device, torch.float32),
                          weight)
-        self.clients_ingested += 1
+        self._m_clients.inc()
 
     # -- checkpointing ---------------------------------------------------------
 
@@ -745,10 +793,10 @@ class StreamIngest:
                     self.ctx.device)
         if meta.get("in_scale") is not None:
             self._in_scale = float(meta["in_scale"])
-        self.clients_ingested += int(meta.get("clients", 0))
-        self.bytes_ingested += int(meta.get("bytes", 0))
-        self.accum_launches += int(meta.get("launches", 0))
-        self.rejected_updates += int(meta.get("rejected", 0))
+        self._m_clients.inc(int(meta.get("clients", 0)))
+        self._m_bytes.inc(int(meta.get("bytes", 0)))
+        self._m_launches.inc(int(meta.get("launches", 0)))
+        self._m_rejected.inc(int(meta.get("rejected", 0)))
 
     def _acc_rows(self, idxs) -> np.ndarray:
         """Accumulator rows `idxs` as u32 host rows [K, L, 2, N] (each block

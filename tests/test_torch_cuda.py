@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ckks import (cipher, encoding, params, sharded,
-                                   transcipher)
+                                   threshold, transcipher)
 from repro_torch.core.secure_agg import ProtectedUpdate
 from repro_torch.kernels import (build, he_agg, lift, ntt, ops, pointwise,
                                   ref, tune)
@@ -483,6 +484,93 @@ def test_sharded_round_on_the_card_matches_the_cpu(cuda):
                       "mul_add": 4 * 2 + 4 + 4, "weighted_sum": 8,
                       "weighted_accum": 8, "weighted_accum_chunks": 8,
                       "mod_lift": 0}
+
+
+def _threshold_round(ctx, draws, vals):
+    """Additive keygen, an encryption under the joint pk, the partials and
+    the combine, and a Shamir 2-of-3 decrypt, from fixed draws."""
+    d = {k: torch.from_numpy(v.astype(np.int32)).to(ctx.device)
+         for k, v in draws.items()}
+    parties, pk = threshold.threshold_keygen_from_samples(ctx, d["a"],
+                                                          d["s"], d["e"])
+    m = torch.from_numpy(encoding.encode_np(vals, ctx).view(np.int32).copy()
+                         ).to(ctx.device)
+    ct = cipher.encrypt_coeffs_from_samples(ctx, pk, m, d["u"], d["e0"],
+                                            d["e1"])
+    partials = [threshold.partial_decrypt_from_samples(ctx, p, ct,
+                                                       d["smudge"][i])
+                for i, p in enumerate(parties)]
+    s = parties[0].s_mont
+    for p in parties[1:]:
+        s = ops.mod_add(s, p.s_mont, ctx)
+    shares = threshold.shamir_share_secret_from_samples(
+        ctx, {"s_mont": s}, list(d["coeffs"]), 3, 2)
+    shamir = [threshold.shamir_partial_decrypt_from_samples(
+        ctx, shares[i], [2, 0], ct, d["smudge"][i]) for i in (2, 0)]
+    out = {"pk0": pk["pk0_mont"], "pk1": pk["pk1_mont"], "ct": ct.data,
+           "combined": threshold.combine_partials(ctx, ct, partials),
+           "shamir": threshold.combine_partials(ctx, ct, shamir)}
+    out.update({f"share {i}": p.s_mont for i, p in enumerate(parties)})
+    return {k: v.cpu() for k, v in out.items()}, ct.scale
+
+
+def test_threshold_round_on_the_card_matches_the_cpu(cuda):
+    """The threshold bodies through the kernels equal the plain versions'
+    bits, and both decrypt."""
+    rng = np.random.RandomState(8)
+    n, b = 1024, 3
+    # delta 2**26: the smudging (sigma 2**12, three parties) is 2e-3 a slot
+    gpu = params.make_test_context(n_poly=n, delta_bits=26, device=cuda)
+    cpu = params.make_test_context(n_poly=n, delta_bits=26, device="cpu")
+    draws = {"a": np.stack([rng.randint(0, q, n) for q in gpu.primes]),
+             "s": rng.randint(-1, 2, (3, n)),
+             "e": np.rint(3.2 * rng.randn(3, n)),
+             "u": rng.randint(-1, 2, (b, n)),
+             "e0": np.rint(3.2 * rng.randn(b, n)),
+             "e1": np.rint(3.2 * rng.randn(b, n)),
+             "smudge": np.rint(4096 * rng.randn(3, b, n)),
+             "coeffs": np.stack([rng.randint(0, q, (1, n))
+                                 for q in gpu.primes], axis=1)}
+    vals = rng.randn(b, gpu.slots).astype(np.float32)
+    ops.reset_launch_counts()
+    card, scale = _threshold_round(gpu, draws, vals)
+    counts = ops.launch_counts()
+    assert counts["ntt_fwd"] == 3 * 2 + 4 + 3 + 2
+    assert counts["mul_add"] == 2 + 3 + 2 and counts["ntt_inv"] == 2
+    host, _ = _threshold_round(cpu, draws, vals)
+    for k, v in host.items():
+        assert torch.equal(card[k], v), k
+    for k in ("combined", "shamir"):
+        out = encoding.decode_np(card[k].numpy().view(np.uint32), cpu, scale)
+        assert np.abs(out - vals).max() < 0.05
+
+
+def test_obs_hooks_count_the_card_launches(cuda):
+    """With obs enabled every kernel op on the card is one
+    kernel_op_launches_total{backend="cuda"} and one he.<op> span, and its
+    output is the disabled call's."""
+    ctx = params.make_test_context(n_poly=1024, device=cuda)
+    rng = np.random.RandomState(3)
+    x, z = _residues(rng, ctx, 4, cuda), _residues(rng, ctx, 4, cuda)
+    want = ops.mul_add(x, ops.ntt_fwd(z, ctx), z, ctx)
+    obs.REGISTRY.reset()
+    obs.configure(enabled=True, trace_path=None, reset=True)
+    try:
+        ops.reset_launch_counts()
+        got = ops.mul_add(x, ops.ntt_fwd(z, ctx), z, ctx)
+        counts = ops.launch_counts()
+        events = [e for e in obs.get_tracer().events
+                  if e.get("cat") == "kernel"]
+    finally:
+        obs.configure(enabled=False, trace_path=None, reset=True)
+    assert torch.equal(got, want)
+    assert counts["ntt_fwd"] == counts["mul_add"] == 1
+    for op in ("ntt_fwd", "mul_add"):
+        c = obs.REGISTRY.get("kernel_op_launches_total", op=op,
+                             backend="cuda")
+        assert c is not None and c.value == counts[op]
+    assert [(e["name"], e["args"]["backend"]) for e in events] == [
+        ("he.ntt_fwd", "cuda"), ("he.mul_add", "cuda")]
 
 
 def test_wrappers_raise_on_what_they_do_not_take(cuda):

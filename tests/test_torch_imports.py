@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch.core.ckks import params as tparams
+from repro_torch.fl import KeyAuthority, ThresholdKeyAuthority
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -55,4 +56,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
         tparams.make_test_context()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tparams.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        KeyAuthority()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ThresholdKeyAuthority(2)
     assert tparams.make_test_context(device="cpu").device.type == "cpu"

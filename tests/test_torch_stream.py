@@ -25,7 +25,7 @@ from repro.wire import compress as jcomp
 from repro.wire import format as jwf
 from repro.wire import stream as jstream
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core import packing as tpacking
 from repro_torch.core import selection as tselection
 from repro_torch.core.ckks import cipher as tcipher
@@ -192,7 +192,8 @@ def test_launch_and_buffer_invariants(keys):
     for blob, w in zip(_jax_blobs(keys), WEIGHTS):
         meta = ti.ingest(blob, w)
         assert meta.n_chunks == N_CHUNKS and meta.seeded
-        assert not ti._pending and ti._resident == 0
+        assert not ti._pending and obs.REGISTRY.get(
+            "wire_ingest_resident_chunks", ingest=ti.ingest_id).value == 0
     assert ti.accum_launches == ti.clients_ingested == 3
     assert ti.peak_chunk_buffers == N_CHUNKS
     assert tstream.peek_update_meta(_jax_blobs(keys)[2]).cid == 2
@@ -278,7 +279,10 @@ def test_corrupted_blob_rejected_and_rolled_back(keys, kind):
     with pytest.raises(twf.WireError):
         ti.ingest(bad, WEIGHTS[1])
     assert ti.rejected_updates == ji.rejected_updates == 1
-    clean.rejected_updates = 1
+    # the counters are read-only registry series: count the rejection the
+    # clean ingest never saw on its own series
+    obs.counter("wire_ingest_rejected_updates",
+                ingest=clean.ingest_id).inc()
     _assert_same_state(ti, clean)
     for ing in (ji, ti):
         ing.ingest(blobs[2], WEIGHTS[2])
@@ -345,7 +349,10 @@ def test_transcipher_update_rejected_and_rolled_back(keys):
     clean.ingest(_jax_blobs(keys)[0], 1.0)
     with pytest.raises(twf.WireError, match="no transcipher materials"):
         ti.ingest(blob, 1.0)
-    clean.rejected_updates = 1
+    # the counters are read-only registry series: count the rejection the
+    # clean ingest never saw on its own series
+    obs.counter("wire_ingest_rejected_updates",
+                ingest=clean.ingest_id).inc()
     _assert_same_state(ti, clean)
     assert not ti.escrow_seeds
 
