@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed S]
 
-Phases 1-7 and three steps between them (2b, 3b, 4b); any failure exits
-non-zero, and without CUDA the script exits non-zero before doing anything:
+Phases 1-8 and four steps between them (2b, 3b, 4b, 8b); any failure
+exits non-zero, and without CUDA the script exits non-zero before doing
+anything:
 
 1. build: nvcc builds every kernel under src/repro_torch/kernels/csrc/ for
    sm_90a (one nvcc per source, started together);
@@ -81,11 +82,27 @@ non-zero, and without CUDA the script exits non-zero before doing anything:
    secret's decrypt bit for bit, the smudged combine differs from it by
    exactly the smudging draws, two of three partials decrypt to garbage,
    and a Shamir 3-of-5 sharing of phase 3's sk decrypts phase 3's
-   aggregate.
+   aggregate;
+8. model round: the round on a real model -- build_model of Qwen1.5-0.5B
+   on the card, initialised from --seed (its tree must be QWEN_LEAVES);
+   three clients of synthetic non-IID streams (make_client_streams, B = 2,
+   S = 256), each with a two-probe sensitivity_jvp map of the global model
+   on one batch (the FL client's soft-label loss) and two local AdamW
+   steps (bf16 compute, remat); the top-10% mask of the maps' plain mean
+   (the orchestrator's threshold-mode branch), keygen, client_protect of
+   each local model, server_aggregate and client_recover_params.  The mean
+   loss over the clients' training batches must fall; a fresh batch's
+   loss is printed.  Then one local step again under torch.profiler;
+8b. model checks outside the counted run: a full-width
+   granite-moe-3b-a800m loss and gradient at B = 1, S = 512 (loss in
+   (0, 3 ln V), finite gradients, the dropped token-expert share by layer
+   from obs), and a Qwen1.5-0.5B prefill of 128 tokens plus 4 decode_steps
+   against a prefill of all 132, in float32, within DECODE_MAX_ERR.
 
-Phases 3, 3b, 4, 5, 6 and 7 each run with the launch counters set to 0 just
-before and read just after, under torch.profiler (device busy share, time by
-kernel); phases 3-6 with obs disabled.
+Phases 3, 3b, 4, 5, 6, 7 and 8 each run with the launch counters set to 0
+just before and read just after; 3-7 under torch.profiler (device busy
+share, time by kernel), phase 8 without it (its step times are the card's);
+phases 3-6 and 8 with obs disabled.
 Each must recover the plaintext FedAvg within 1e-2 (the quickstart's
 bound; phase 7 within THRESHOLD_MAX_ERR) with exactly its expected launch
 counts; the wire round must also
@@ -93,12 +110,13 @@ fold with one accumulate launch per client and hold at most one update's
 11,328 rows, with blob sizes equal to the frame layout's; so must the
 transcipher round.
 
-The last lines are the threshold round's summary, the card's name and power
-limit (nvidia-smi), one JSON line with every kernel's numbers, and the JSON
-result line.
+The last lines are the threshold round's and the model round's summaries,
+the card's name and power limit (nvidia-smi), one JSON line with every
+kernel's numbers, and the JSON result line.
 """
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -113,9 +131,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import interop, obs  # noqa: E402
+from repro_torch import configs, interop, models, obs  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
-from repro_torch.core import packing  # noqa: E402
+from repro_torch.core import packing, sensitivity  # noqa: E402
 from repro_torch.core.ckks import (  # noqa: E402
     cipher, encoding, params, sharded, threshold, transcipher)
 from repro_torch.core.secure_agg import (  # noqa: E402
@@ -126,6 +144,10 @@ from repro_torch.fl import ThresholdKeyAuthority  # noqa: E402
 from repro_torch.launch import fl_step, mesh as he_mesh  # noqa: E402
 from repro_torch.wire import budget, compress, format as wf  # noqa: E402
 from repro_torch.wire import stream  # noqa: E402
+from repro_torch.data import make_client_streams  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.optim import (  # noqa: E402
+    AdamWConfig, adamw_init, adamw_update)
 
 # Qwen1.5-0.5B (src/repro/configs/qwen1_5_0_5b.py: 24 layers, d_model 1024,
 # d_ff 2816, vocab 151936, QKV bias, tied embeddings): the 14 parameter
@@ -182,6 +204,13 @@ EXPECTED_LAUNCHES = {
     "threshold": {"ntt_fwd": 21, "ntt_inv": 1, "ntt4_fwd": 0, "ntt4_inv": 0,
                   "mul_add": 9, "weighted_sum": 1, "weighted_accum": 0,
                   "weighted_accum_chunks": 0, "mod_lift": 0},
+    # the model round's HE part is the in-memory round's: keygen, three
+    # public-key encrypts, weighted_sum, decrypt; local training and the
+    # sensitivity maps launch no HE kernel
+    "model_round": {"ntt_fwd": 14, "ntt_inv": 1, "ntt4_fwd": 0,
+                    "ntt4_inv": 0, "mul_add": 7, "weighted_sum": 1,
+                    "weighted_accum": 0, "weighted_accum_chunks": 0,
+                    "mod_lift": 0},
 }
 # the NTT dispatches of the in-memory round, (op, B) at N=8192, L=2, read
 # off core/ckks/cipher.py: keygen's s and e are [L, N] (B = 1), each
@@ -212,6 +241,22 @@ N_PARTIES = 3
 THRESHOLD_STDS = 15
 MISSING_PARTY_MIN_ERR = 1.0
 SHAMIR_N, SHAMIR_T, SHAMIR_ACTIVE = 5, 3, (0, 2, 4)
+# Phase 8: Qwen1.5-0.5B, three clients of synthetic non-IID streams
+# (Dirichlet alpha 0.5 over the vocab), B = 2 x S = 256 a batch, two local
+# AdamW steps at FLClient's lr 1e-3 and no weight decay, and a two-probe
+# sensitivity map each.  Step 8b: granite-moe-3b-a800m at B = 1, S = 512,
+# and decode against prefill in float32.  The decode bound: prefill and
+# decode sum the same float32 products in other orders, which moves a
+# logit by about 1e-6 of the residual stream's scale per layer; 1e-3 is
+# far above that and far below the logits' spread (std ~0.6 at init).
+MODEL_ARCH = "qwen1.5-0.5b"
+MODEL_SEQ, MODEL_BATCH = 256, 2
+LOCAL_STEPS, LOCAL_LR = 2, 1e-3
+SENS_PROBES = 2
+DIRICHLET_ALPHA = 0.5
+MOE_ARCH, MOE_SEQ = "granite-moe-3b-a800m", 512
+DECODE_PREFIX, DECODE_STEPS = 128, 4
+DECODE_MAX_ERR = 1e-3
 
 # Published H100 SXM peak (NVIDIA data sheet): HBM3 3.35 TB/s.  Integer
 # work is counted per pipe, each pipe at 64 lanes an SM (Hopper white
@@ -1655,6 +1700,251 @@ def check_threshold(seed, st, out):
     return miss_err, shamir_err
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the model round; step 8b: MoE gradients and decode
+# ---------------------------------------------------------------------------
+
+
+def client_soft_label_loss(cfg, ax):
+    """The FL client's sensitivity loss (src/repro/fl/client.py,
+    sensitivity_map): log-softmax of the logits' real-vocab columns against
+    soft labels.  torch.func refuses checkpointing, so the forward runs
+    with remat off (the same values)."""
+    cfg = dataclasses.replace(cfg, remat=False)
+
+    def loss_of_y(p, feats, y):
+        logits, _ = transformer.forward_logits(p, dict(feats), cfg, ax)
+        logp = torch.log_softmax(logits[..., :cfg.vocab].float(), dim=-1)
+        return -torch.mean(torch.sum(y * logp, dim=-1))
+    return loss_of_y
+
+
+def on_device(batch, dev):
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+def one_hot(labels, vocab):
+    y = torch.zeros(*labels.shape, vocab, dtype=torch.float32,
+                    device=labels.device)
+    return y.scatter_(-1, labels.long()[..., None], 1.0)
+
+
+def model_round(seed, cfg, make_ctx, dev, want_leaves):
+    """Phase 8: the paper's round on a real model.  Build and initialise
+    `cfg` on `dev`; each client's sensitivity map of the global model (one
+    batch, SENS_PROBES probes); the top-p mask of their plain mean (the
+    orchestrator's threshold-mode branch); LOCAL_STEPS AdamW steps per
+    client from the global model (FLClient's local_train); then keygen,
+    client_protect, server_aggregate and client_recover_params.  Returns
+    its launch counts and numbers."""
+    sync = torch.cuda.synchronize
+    times, steps = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+
+    t = time.perf_counter()
+    model = models.build_model(cfg, device=dev)
+    glob = model.init(torch.Generator(device=dev).manual_seed(seed))
+    sync()
+    times["build_model + init"] = time.perf_counter() - t
+    shapes = map_tree(lambda p: tuple(p.shape), glob)
+    n_params = sum(math.prod(s) for s in leaves(shapes))
+    if shapes != want_leaves or n_params != cfg.param_count():
+        raise AssertionError(f"model_round: parameter tree {shapes} "
+                             f"({n_params}) is not the expected layout")
+    streams = make_client_streams(N_CLIENTS, cfg.vocab, seq_len=MODEL_SEQ,
+                                  batch_size=MODEL_BATCH,
+                                  alpha=DIRICHLET_ALPHA, seed=seed)
+
+    loss_of_y = client_soft_label_loss(cfg, model.ax)
+    sens = 0
+    for i, stream in enumerate(streams):
+        batch = on_device(stream.next_batch(), dev)
+        t = time.perf_counter()
+        smap = sensitivity.sensitivity_jvp(
+            loss_of_y, glob, {"tokens": batch["tokens"]},
+            one_hot(batch["labels"], cfg.vocab),
+            torch.Generator(device=dev).manual_seed(seed + 20 + i),
+            n_probes=SENS_PROBES)
+        vec, _ = packing.flatten_params(smap)
+        del smap
+        sens = sens + vec / N_CLIENTS
+        sync()
+        times[f"sensitivity_jvp[{i}]"] = time.perf_counter() - t
+    del vec
+
+    t = time.perf_counter()
+    ctx = make_ctx()
+    sk, pk = cipher.keygen(ctx, torch.Generator(device=ctx.device)
+                           .manual_seed(seed))
+    sync()
+    times["make_context + keygen"] = time.perf_counter() - t
+    t = time.perf_counter()
+    agg = SelectiveHEAggregator.build(
+        ctx, glob, sens, AggregatorConfig(p_ratio=P_RATIO, strategy="top_p"))
+    del sens
+    sync()
+    times["build (top-p mask of the mean map)"] = time.perf_counter() - t
+    rep = agg.overhead_report()
+    log(f"model_round: {rep['n_enc']}/{rep['n_total']} parameters "
+        f"encrypted in {rep['n_ciphertexts']} ciphertexts per client")
+    if rep["n_ciphertexts"] != n_ciphertexts(ctx.slots):
+        raise AssertionError(f"model_round: unexpected partition {rep}")
+
+    opt_cfg = AdamWConfig(lr=LOCAL_LR, weight_decay=0.0)
+    step = models.value_and_grad(model.loss_fn)
+    updates, expect, seen = [], 0, []
+    for i, stream in enumerate(streams):
+        params, opt_state = glob, adamw_init(glob)
+        for s in range(LOCAL_STEPS):
+            batch = on_device(stream.next_batch(), dev)
+            seen.append(batch)
+            t = time.perf_counter()
+            loss, grads = step(params, batch)
+            params, opt_state, _ = adamw_update(grads, opt_state, params,
+                                                opt_cfg)
+            sync()
+            dt = time.perf_counter() - t
+            steps.append(dt)
+            log(f"model_round client {i} step {s}: loss {float(loss):.4f}, "
+                f"{dt * 1e3:.1f} ms, {MODEL_BATCH * MODEL_SEQ / dt:.0f} "
+                "tokens/s")
+        del grads, opt_state
+        t = time.perf_counter()
+        updates.append(agg.client_protect(
+            params, pk, torch.Generator(device=ctx.device).manual_seed(
+                seed + 10 + i)))
+        sync()
+        times[f"client_protect[{i}]"] = time.perf_counter() - t
+        expect = expect + packing.flatten_params(params)[0]
+        del params
+
+    t = time.perf_counter()
+    aggregate = agg.server_aggregate(updates, [1 / N_CLIENTS] * N_CLIENTS)
+    sync()
+    times["server_aggregate"] = time.perf_counter() - t
+    del updates
+    t = time.perf_counter()
+    recovered = agg.client_recover_params(aggregate, sk)
+    sync()
+    times["client_recover_params"] = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    report_times("model_round", times, t0)
+    err = check_recovered("model_round", recovered, expect / N_CLIENTS)
+    check_launches("model_round", counts)
+
+    # The federation's objective: the mean loss over the batches the
+    # clients trained on must fall.  A fresh batch's loss is printed, not
+    # held: in two steps nothing in these streams carries over to unseen
+    # tokens (PERF.md §6).
+    fresh = on_device(streams[0].next_batch(), dev)
+    with torch.no_grad():
+        mean_loss = lambda p: sum(float(model.loss_fn(p, b))
+                                  for b in seen) / len(seen)
+        loss0, loss1 = mean_loss(glob), mean_loss(recovered)
+        fresh0 = float(model.loss_fn(glob, fresh))
+        fresh1 = float(model.loss_fn(recovered, fresh))
+    log(f"model_round: mean loss over the clients' {len(seen)} training "
+        f"batches {loss0:.4f} (initial model) -> {loss1:.4f} (encrypted "
+        f"FedAvg of {N_CLIENTS} clients); on a fresh batch {fresh0:.4f} -> "
+        f"{fresh1:.4f}")
+    if not (math.isfinite(loss1) and loss1 < loss0
+            and math.isfinite(fresh1)):
+        raise AssertionError(f"model_round: loss {loss1} (fresh {fresh1}) "
+                             f"is not finite and below the initial {loss0}")
+    return counts, {"err": err, "loss0": loss0, "loss1": loss1,
+                    "fresh0": fresh0, "fresh1": fresh1,
+                    "peak_gib": peak, "steps": steps,
+                    "sens_s": [times[f"sensitivity_jvp[{i}]"]
+                               for i in range(N_CLIENTS)],
+                    "n_ciphertexts": rep["n_ciphertexts"],
+                    "model": model, "glob": glob, "batch": fresh}
+
+
+def profiled_step(mr, stats):
+    """One local AdamW step of the global model under torch.profiler (the
+    round's own steps run unprofiled, for their times)."""
+    model, glob, batch = mr.pop("model"), mr.pop("glob"), mr.pop("batch")
+    with traced("model_step", stats):
+        _, grads = models.value_and_grad(model.loss_fn)(glob, batch)
+        adamw_update(grads, adamw_init(glob), glob,
+                     AdamWConfig(lr=LOCAL_LR, weight_decay=0.0))
+
+
+def moe_gradients(seed, dev):
+    """Step 8b: a full-width MoE loss and gradient (bf16 compute, remat) at
+    B = 1, S = MOE_SEQ; the dropped share from obs's MoE counters."""
+    cfg = configs.get_config(MOE_ARCH)
+    model = models.build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    n_params = sum(p.numel() for p in leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{MOE_ARCH}: {n_params} parameters")
+    batch = on_device(make_client_streams(1, cfg.vocab, seq_len=MOE_SEQ,
+                                          batch_size=1, seed=seed)[0]
+                      .next_batch(), dev)
+    series = [(obs.counter("moe_token_assignments_total", layer=i,
+                           kept="true"),
+               obs.counter("moe_token_assignments_total", layer=i,
+                           kept="false")) for i in range(cfg.n_layers)]
+    before = [(k.value, d.value) for k, d in series]
+    torch.cuda.reset_peak_memory_stats()
+    obs.configure(enabled=True)
+    try:
+        t = time.perf_counter()
+        loss, grads = models.value_and_grad(model.loss_fn)(params, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    finally:
+        obs.configure(enabled=False)
+    loss = float(loss)
+    finite = all(bool(torch.isfinite(g).all()) for g in leaves(grads))
+    kept = [k.value - k0 for (k, _), (k0, _) in zip(series, before)]
+    dropped = [d.value - d0 for (_, d), (_, d0) in zip(series, before)]
+    share = sum(dropped) / max(1, sum(kept) + sum(dropped))
+    by_layer = [d / max(1, k + d) for k, d in zip(kept, dropped)]
+    log(f"moe {MOE_ARCH}: {n_params} parameters, loss {loss:.4f} at B=1 "
+        f"S={MOE_SEQ}, gradients finite: {finite}, dropped token-expert "
+        f"assignments {share:.4f} (by layer: "
+        f"{', '.join(f'{x:.3f}' for x in by_layer)}), loss+grad {dt:.3f} s, "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (math.isfinite(loss) and 0 < loss < 3 * math.log(cfg.vocab)
+            and finite):
+        raise AssertionError(f"moe: loss {loss} or gradients out of range")
+    return share
+
+
+def decode_check(seed, dev):
+    """Step 8b: DECODE_PREFIX tokens of prefill and DECODE_STEPS
+    decode_steps against one prefill of all of them, float32 compute."""
+    cfg = dataclasses.replace(configs.get_config(MODEL_ARCH),
+                              dtype="float32")
+    model = models.build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    total = DECODE_PREFIX + DECODE_STEPS
+    toks = on_device(make_client_streams(1, cfg.vocab, seq_len=total,
+                                         batch_size=MODEL_BATCH, seed=seed)[0]
+                     .next_batch(), dev)["tokens"]
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            params, {"tokens": toks[:, :DECODE_PREFIX]}, cache_len=total)
+        for t in range(DECODE_PREFIX, total):
+            logits, cache = model.decode_step(params, cache,
+                                              {"tokens": toks[:, t]})
+        want, _ = model.prefill(params, {"tokens": toks}, cache_len=total)
+    err = float((logits - want).abs().max())
+    log(f"decode {MODEL_ARCH} (float32): prefill {DECODE_PREFIX} + "
+        f"{DECODE_STEPS} decode_steps vs prefill {total}: max |logit diff| "
+        f"{err:.3e} (bound {DECODE_MAX_ERR}, logit std "
+        f"{float(want.std()):.3f})")
+    if not err < DECODE_MAX_ERR:
+        raise AssertionError(f"decode: logits differ by {err}")
+    return err
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1727,6 +2017,17 @@ def main():
     miss_err, shamir_err = check_threshold(args.seed, state, th_out)
     th_bound = threshold_bound(state["ctx"])
     del state, th_out["glob"], th_out["partials"], th_out["coeffs"]
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    by_path["model_round"], mr = model_round(
+        args.seed, configs.get_config(MODEL_ARCH), params.make_context, dev,
+        QWEN_LEAVES)
+    step_stats = {}
+    profiled_step(mr, step_stats)
+    torch.cuda.empty_cache()
+    moe_share = moe_gradients(args.seed, dev)
+    torch.cuda.empty_cache()
+    decode_err = decode_check(args.seed, dev)
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
@@ -1739,6 +2040,20 @@ def main():
         f"{th_out['peak_gib']:.2f} GiB, FedAvg error {th_out['err']:.3e} "
         f"(bound {th_bound:.4g}); Shamir {SHAMIR_T}-of-{SHAMIR_N} error "
         f"{shamir_err:.3e}; missing-party error {miss_err:.3e}")
+    tokens = MODEL_BATCH * MODEL_SEQ
+    log(f"model round ({MODEL_ARCH}, {N_CLIENTS} clients, {LOCAL_STEPS} "
+        f"AdamW steps of {tokens} tokens each, bf16 compute, remat): local "
+        f"steps {', '.join(f'{s * 1e3:.1f}' for s in mr['steps'])} ms "
+        f"({tokens / min(mr['steps']):.0f} tokens/s at the fastest), "
+        f"sensitivity_jvp ({SENS_PROBES} probes) "
+        f"{', '.join(f'{s:.3f}' for s in mr['sens_s'])} s, "
+        f"{mr['n_ciphertexts']} ciphertexts a client, FedAvg error "
+        f"{mr['err']:.3e}, training-batch loss {mr['loss0']:.4f} -> "
+        f"{mr['loss1']:.4f} (fresh batch {mr['fresh0']:.4f} -> "
+        f"{mr['fresh1']:.4f}), peak device memory {mr['peak_gib']:.2f} GiB, "
+        f"a profiled step's device busy share "
+        f"{step_stats['busy_share']:.4f}; {MOE_ARCH} "
+        f"dropped share {moe_share:.4f}; decode error {decode_err:.3e}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -5,5 +5,7 @@ Residues are int32 tensors; the kernels (ntt_fwd, ntt_inv, mul_add,
 weighted_sum, weighted_accum, weighted_accum_chunks, mod_lift) are
 hand-written CUDA for Hopper under `kernels/csrc/`.  Entry points run on
 CUDA unless given device="cpu"; `core.ckks.sharded` runs them over a mesh
-of devices (`launch.mesh`).
+of devices (`launch.mesh`).  `models`, `optim`, `data` and
+`core.sensitivity` hold the transformer families, AdamW, the synthetic
+client streams and the sensitivity maps of the FL round.
 """

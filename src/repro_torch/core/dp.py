@@ -84,7 +84,7 @@ def selection_advantage(sens_vec, p: float, b: float, seed: int = 0) -> dict:
 
     s = _host(sens_vec, np.float64)
     sel = selection.top_p_mask(torch.from_numpy(s), p)
-    rnd = selection.random_mask(p, s.size, seed=seed)
+    rnd = selection.random_mask(p, s.size, seed=seed, device="cpu")
     return {
         "eps_none": epsilon_all_plaintext(s, b),
         "eps_random": epsilon_total(s, rnd, b),

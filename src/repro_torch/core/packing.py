@@ -60,6 +60,23 @@ def tree_leaves(params) -> list:
     return leaves
 
 
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of `tree` (and the matching leaves of `rest`),
+    in the same nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def unflatten_leaves(leaves, spec: FlatSpec):
+    """Leaves in pytree order -> spec's structure (inverse of
+    tree_leaves)."""
+    return _unflatten(spec.structure, leaves)
+
+
 def make_flat_spec(params) -> FlatSpec:
     leaves: list = []
     structure = _flatten(params, leaves)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.ckks.params import resolve_device
+
 
 def _n_select(n_total: int, p: float) -> int:
     p = float(min(max(p, 0.0), 1.0))
@@ -33,9 +35,11 @@ def top_p_mask(sens_vec, p: float):
     return mask
 
 
-def random_mask(p: float, n_total: int, seed: int = 0, device="cpu"):
+def random_mask(p: float, n_total: int, seed: int = 0, device=None):
     """Random-p baseline, nested across p for a fixed seed (the JAX
-    package's numpy permutation, so the masks are identical)."""
+    package's numpy permutation, so the masks are identical), on `device`
+    (CUDA unless the caller names another)."""
+    device = resolve_device(device)
     order = np.random.RandomState(seed).permutation(n_total)
     mask = torch.zeros(n_total, dtype=torch.bool, device=device)
     mask[torch.from_numpy(order[: _n_select(n_total, p)]).to(device)] = True

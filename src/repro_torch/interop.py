@@ -9,12 +9,15 @@ and context primes cross over unchanged, and so do a JAX
 JAX-provisioned client.  A `StreamIngest` checkpoint needs no converter:
 its `export_state` arrays have the JAX package's layout in both packages,
 and `repro_torch.ckpt` writes the JAX package's checkpoint format.
+Model parameters and AdamW state cross with `params_from_np` and
+`params_to_np`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import packing
 from repro_torch.core.ckks.cipher import DERIVE_FOLD_CHUNK, Ciphertext
 from repro_torch.core.ckks.params import CkksContext
 
@@ -141,6 +144,19 @@ def shamir_parties_from_np(parties, device) -> list:
 def shamir_parties_to_np(parties) -> list:
     """-> [(index, u32 share)], the fields of JAX `ShamirParty`s."""
     return [(p.index, residues_to_np(p.share)) for p in parties]
+
+
+def params_from_np(tree, device):
+    """A JAX parameter tree as numpy (`jax.tree_util.tree_map(np.asarray,
+    params)`), or AdamW state ({"m", "v", "step"}), -> the same nesting of
+    tensors on `device`, dtypes kept."""
+    return packing.tree_map(
+        lambda a: torch.from_numpy(np.array(a)).to(device), tree)
+
+
+def params_to_np(tree):
+    """Inverse of params_from_np: tensors -> numpy arrays (host copies)."""
+    return packing.tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 def check_context(ctx: CkksContext, primes, n_poly: int | None = None,

@@ -618,3 +618,42 @@ def test_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         he_agg.he_weighted_accum_fused(x[0].expand(x.shape), x, t.qs, t.qs,
                                        t.qinv_negs)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m"])
+def test_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
+    """The same parameters and batch on the card and on the CPU (float32,
+    TF32 off, remat on): loss to rtol 1e-5 and every gradient leaf to rtol
+    1e-4 / atol 1e-6, the tolerances the CPU port holds against JAX.  The
+    card's GEMMs reduce in another order, and the MoE combine's index_add
+    sums each token's top_k rows in an unspecified order."""
+    import dataclasses
+
+    from repro_torch import configs, models
+    from repro_torch.core import packing
+
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              remat=True)
+    cpu_model = models.build_model(cfg, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(3)
+    batch = {k: torch.from_numpy(rng.randint(0, cfg.vocab, (2, 16))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    card_model = models.build_model(cfg)
+    move = lambda t: t.to(cuda)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want_loss, want = models.value_and_grad(cpu_model.loss_fn)(params,
+                                                                   batch)
+        loss, got = models.value_and_grad(card_model.loss_fn)(
+            packing.tree_map(move, params), packing.tree_map(move, batch))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert card_model.device.type == "cuda"
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    for g, w in zip(packing.tree_leaves(got), packing.tree_leaves(want)):
+        assert g.device.type == "cuda"
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-6)

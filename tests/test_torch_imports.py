@@ -5,9 +5,15 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
+from repro.core import selection as jselection
+
+from repro_torch import configs as tconfigs
+from repro_torch import models as tmodels
+from repro_torch.core import selection as tselection
 from repro_torch.core.ckks import params as tparams
 from repro_torch.fl import KeyAuthority, ThresholdKeyAuthority
 
@@ -43,6 +49,14 @@ def test_package_imports_no_jax_and_no_reference_package():
     _run_clean(_ALL_SUBMODULES)
 
 
+def test_model_modules_import_no_jax_and_no_reference_package():
+    _run_clean("import repro_torch.models, repro_torch.models.layers, "
+               "repro_torch.models.moe, repro_torch.models.transformer, "
+               "repro_torch.models.sharding, repro_torch.configs, "
+               "repro_torch.optim, repro_torch.data, "
+               "repro_torch.core.sensitivity, repro_torch.interop")
+
+
 def test_chip_smoke_imports_no_jax_and_no_reference_package():
     _run_clean("sys.path.insert(0, '.')\nimport chip_smoke")
 
@@ -61,3 +75,26 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ThresholdKeyAuthority(2)
     assert tparams.make_test_context(device="cpu").device.type == "cpu"
+
+
+def test_model_entry_points_need_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the guard cannot trip")
+    cfg = tconfigs.get_config("qwen1.5-0.5b", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmodels.build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tselection.random_mask(0.3, 100, seed=1)
+    model = tmodels.build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert all(t.device.type == "cpu" for t in
+               tmodels.packing.tree_leaves(params))
+
+
+@pytest.mark.parametrize("p,n,seed", [(0.3, 1000, 1), (0.0, 17, 0),
+                                      (1.0, 17, 2), (0.05, 4099, 3)])
+def test_random_mask_on_cpu_is_jax_mask(p, n, seed):
+    got = tselection.random_mask(p, n, seed=seed, device="cpu")
+    assert got.device.type == "cpu" and got.dtype == torch.bool
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jselection.random_mask(p, n, seed=seed)))
