@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
 
-Phases 1-8 and four steps between them (2b, 3b, 4b, 8b); any failure
+Phases 1-9 and six steps between them (2b, 3b, 4b, 8b, 9b, 9c); any failure
 exits non-zero, and without CUDA the script exits non-zero before doing
 anything:
 
@@ -97,12 +97,49 @@ anything:
    granite-moe-3b-a800m loss and gradient at B = 1, S = 512 (loss in
    (0, 3 ln V), finite gradients, the dropped token-expert share by layer
    from obs), and a Qwen1.5-0.5B prefill of 128 tokens plus 4 decode_steps
-   against a prefill of all 132, in float32, within DECODE_MAX_ERR.
+   against a prefill of all 132, in float32, within DECODE_MAX_ERR;
+9. the FL loop at full width, through its entry point: FLTask.run() of
+   Qwen1.5-0.5B (built on the card from --seed) with phase 8's three
+   FLClients and streams (two local AdamW steps of B = 2 x S = 256, a
+   two-probe sensitivity map), AggregatorConfig(top_p, 0.1) and
+   FLRunConfig(FL_ROUNDS = 2 rounds over the wire: seeded ciphertexts, an
+   f16 plain segment; a checkpoint every round) on make_context().  Stage
+   1 is the key authority's keygen; stage 2 the clients' maps, HE-folded by
+   agree_sensitivity in blocks of SENSITIVITY_BLOCK_ROWS ciphertexts (10
+   blocks of 113,279 rows a client), and the top-10% mask; stage 3 the
+   rounds.  The script wraps (never edits) the clients' local_train to
+   capture the plaintext FedAvg, and the stages to count and profile
+   them.  Held: each round's recovered model within 1e-2 of the FedAvg of
+   its local models; the decrypted global map within 1e-2 of the maps'
+   plaintext mean and a mask of round(0.1 x 463,987,712) = 46,398,771
+   entries; RoundLog's bytes measured and equal to 3 x the frame layout's
+   uplink and downlink blobs; every stage's and round's launch counts;
+   and a fresh FLTask on the same checkpoints resumes at round 2, runs no
+   round and holds round 1's global model bit for bit.  Printed: each
+   stage's and round's host clock, device busy share and peak memory,
+   RoundLog's loss and bytes, and the HE mask's overlap with the plaintext
+   mean's mask;
+9b. the ssm family through the FL loop: mamba2-370m at full width and
+   depth (368,252,416 parameters, bf16 compute, remat), one in-memory
+   FLTask round of three clients, two local AdamW steps of B = 2 x S = 512
+   (two SSD chunks of 256: the inter-chunk recurrence), the HE mask and
+   top-10% (8,991 ciphertexts a client): FedAvg error under 1e-2 and the
+   launch counts held, step times and tokens/s printed; then mamba2-370m's
+   decode against its prefill (128 + 4 tokens, float32) within
+   DECODE_MAX_ERR;
+9c. the hybrid family at full width: zamba2-7b (6,674,390,608 parameters,
+   float32 master weights, bf16 compute, remat), one loss and gradient at
+   B = 1, S = 512 (loss in (0, 3 ln 32000), every gradient finite, the
+   peak printed), then a prefill of 128 tokens and 4 decode_steps against
+   a prefill of all 132 on the same weights in float32, within
+   DECODE_MAX_ERR.  No AdamW step at this width: its two float32 moments
+   would add 53 GB to the 53 GB of weights and gradients.
 
-Phases 3, 3b, 4, 5, 6, 7 and 8 each run with the launch counters set to 0
-just before and read just after; 3-7 under torch.profiler (device busy
-share, time by kernel), phase 8 without it (its step times are the card's);
-phases 3-6 and 8 with obs disabled.
+Phases 3, 3b, 4, 5, 6, 7 and 8, each stage and round of phase 9 and step
+9b run with the launch counters set to 0 just before and read just after;
+3-7 and phase 9's stages and rounds under torch.profiler (device busy
+share, time by kernel), phase 8 and step 9b without it (their step times
+are the card's); phases 3-6, 8 and 9 with obs disabled.
 Each must recover the plaintext FedAvg within 1e-2 (the quickstart's
 bound; phase 7 within THRESHOLD_MAX_ERR) with exactly its expected launch
 counts; the wire round must also
@@ -110,13 +147,15 @@ fold with one accumulate launch per client and hold at most one update's
 11,328 rows, with blob sizes equal to the frame layout's; so must the
 transcipher round.
 
-The last lines are the threshold round's and the model round's summaries,
-the card's name and power limit (nvidia-smi), one JSON line with every
-kernel's numbers, and the JSON result line.
+The last lines are the threshold round's, the model round's, the FL
+loop's and steps 9b/9c's summaries, the card's name and power limit
+(nvidia-smi), one JSON line with every kernel's numbers, and the JSON
+result line.
 """
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -133,14 +172,16 @@ import torch  # noqa: E402
 
 from repro_torch import configs, interop, models, obs  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
-from repro_torch.core import packing, sensitivity  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    packing, secure_agg, selection, sensitivity)
 from repro_torch.core.ckks import (  # noqa: E402
     cipher, encoding, params, sharded, threshold, transcipher)
 from repro_torch.core.secure_agg import (  # noqa: E402
     AggregatorConfig, ProtectedUpdate, SelectiveHEAggregator)
 from repro_torch.kernels import (  # noqa: E402
     build, he_agg, lift, ntt, ops, pointwise, ref, tune)
-from repro_torch.fl import ThresholdKeyAuthority  # noqa: E402
+from repro_torch.fl import (  # noqa: E402
+    ClientConfig, FLClient, FLRunConfig, FLTask, ThresholdKeyAuthority)
 from repro_torch.launch import fl_step, mesh as he_mesh  # noqa: E402
 from repro_torch.wire import budget, compress, format as wf  # noqa: E402
 from repro_torch.wire import stream  # noqa: E402
@@ -257,6 +298,14 @@ DIRICHLET_ALPHA = 0.5
 MOE_ARCH, MOE_SEQ = "granite-moe-3b-a800m", 512
 DECODE_PREFIX, DECODE_STEPS = 128, 4
 DECODE_MAX_ERR = 1e-3
+# Phase 9: FLTask.run() of Qwen1.5-0.5B with phase 8's clients and streams,
+# the HE mask (stage 2) and FL_ROUNDS wire rounds, checkpointed every
+# round.  Step 9b: one in-memory round of mamba2-370m at B = 2 x S =
+# SSM_SEQ (two SSD chunks of 256).  Step 9c: zamba2-7b's loss and gradient
+# at B = 1, S = HYBRID_SEQ.
+FL_ROUNDS = 2
+SSM_ARCH, SSM_SEQ, SSM_PARAMS = "mamba2-370m", 512, 368_252_416
+HYBRID_ARCH, HYBRID_SEQ, HYBRID_PARAMS = "zamba2-7b", 512, 6_674_390_608
 
 # Published H100 SXM peak (NVIDIA data sheet): HBM3 3.35 TB/s.  Integer
 # work is counted per pipe, each pipe at 64 lanes an SM (Hopper white
@@ -805,10 +854,11 @@ def flat_leaves(tree):
     return torch.cat([p.reshape(-1) for p in leaves(tree)])
 
 
-def check_recovered(what, recovered, expect, bound=MAX_ERR):
+def check_recovered(what, recovered, expect, bound=MAX_ERR,
+                    shapes=QWEN_LEAVES):
     """Leaf shapes, finiteness and the FedAvg bound; returns the error."""
     got_leaves = leaves(recovered)
-    if [tuple(p.shape) for p in got_leaves] != leaves(QWEN_LEAVES):
+    if [tuple(p.shape) for p in got_leaves] != leaves(shapes):
         raise AssertionError(f"{what}: recovered leaves have the wrong "
                              "shapes")
     got = torch.cat([p.reshape(-1) for p in got_leaves])
@@ -822,11 +872,11 @@ def check_recovered(what, recovered, expect, bound=MAX_ERR):
     return err
 
 
-def check_launches(what, counts):
+def check_launches(what, counts, want=None):
+    want = EXPECTED_LAUNCHES[what] if want is None else want
     log(f"{what} launches: {json.dumps(counts)}")
-    if counts != EXPECTED_LAUNCHES[what]:
-        raise AssertionError(f"{what} launch counts {counts} != "
-                             f"{EXPECTED_LAUNCHES[what]}")
+    if counts != want:
+        raise AssertionError(f"{what} launch counts {counts} != {want}")
 
 
 def report_times(what, times, t0):
@@ -1917,13 +1967,14 @@ def moe_gradients(seed, dev):
     return share
 
 
-def decode_check(seed, dev):
-    """Step 8b: DECODE_PREFIX tokens of prefill and DECODE_STEPS
-    decode_steps against one prefill of all of them, float32 compute."""
-    cfg = dataclasses.replace(configs.get_config(MODEL_ARCH),
-                              dtype="float32")
+def decode_check(seed, dev, arch=MODEL_ARCH, params=None):
+    """DECODE_PREFIX tokens of prefill and DECODE_STEPS decode_steps against
+    one prefill of all of them, float32 compute (step 8b for Qwen, 9b and
+    9c for the ssm and hybrid families; `params`: weights to reuse)."""
+    cfg = dataclasses.replace(configs.get_config(arch), dtype="float32")
     model = models.build_model(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    if params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
     total = DECODE_PREFIX + DECODE_STEPS
     toks = on_device(make_client_streams(1, cfg.vocab, seq_len=total,
                                          batch_size=MODEL_BATCH, seed=seed)[0]
@@ -1936,13 +1987,320 @@ def decode_check(seed, dev):
                                               {"tokens": toks[:, t]})
         want, _ = model.prefill(params, {"tokens": toks}, cache_len=total)
     err = float((logits - want).abs().max())
-    log(f"decode {MODEL_ARCH} (float32): prefill {DECODE_PREFIX} + "
+    log(f"decode {arch} (float32): prefill {DECODE_PREFIX} + "
         f"{DECODE_STEPS} decode_steps vs prefill {total}: max |logit diff| "
         f"{err:.3e} (bound {DECODE_MAX_ERR}, logit std "
         f"{float(want.std()):.3f})")
     if not err < DECODE_MAX_ERR:
-        raise AssertionError(f"decode: logits differ by {err}")
+        raise AssertionError(f"decode {arch}: logits differ by {err}")
     return err
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the FL loop at full width; steps 9b and 9c: the ssm and hybrid
+# families
+# ---------------------------------------------------------------------------
+
+
+def launches(**counts):
+    """A launch-count dict over every kernel, 0 where not given."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
+def fl_stage_launches(n_params, slots, n_clients=N_CLIENTS):
+    """Predicted launches of the FL loop's stages for a model of n_params:
+    stage 1 is keygen (2 ntt_fwd); stage 2 folds the sensitivity maps in
+    blocks of SENSITIVITY_BLOCK_ROWS ciphertexts, each block three
+    public-key encrypts (4 ntt_fwd, 2 mul_add each), one weighted_sum and a
+    decrypt (mul_add, ntt_inv); a wire round is phase 4's (three seeded
+    encrypts, one accumulate per blob, the decrypt) and an in-memory round
+    phase 3's without keygen."""
+    rows = -(-n_params // slots)
+    blocks = -(-rows // secure_agg.SENSITIVITY_BLOCK_ROWS)
+    enc = lambda k: dict(ntt_fwd=4 * k, mul_add=2 * k)
+    mask = launches(ntt_fwd=enc(n_clients)["ntt_fwd"] * blocks,
+                    mul_add=(enc(n_clients)["mul_add"] + 1) * blocks,
+                    weighted_sum=blocks, ntt_inv=blocks)
+    in_memory = launches(ntt_fwd=4 * n_clients, mul_add=2 * n_clients + 1,
+                         weighted_sum=1, ntt_inv=1)
+    return {"keys": launches(ntt_fwd=2), "mask": mask, "blocks": blocks,
+            "rows": rows, "wire_round": EXPECTED_LAUNCHES["wire"],
+            "in_memory_round": in_memory}
+
+
+def fl_clients(model, cfg, seed, seq):
+    """N_CLIENTS FL clients on phase 8's synthetic non-IID streams."""
+    streams = make_client_streams(N_CLIENTS, cfg.vocab, seq_len=seq,
+                                  batch_size=MODEL_BATCH,
+                                  alpha=DIRICHLET_ALPHA, seed=seed)
+    return [FLClient(i, model, streams[i],
+                     ClientConfig(local_steps=LOCAL_STEPS, lr=LOCAL_LR,
+                                  sensitivity_probes=SENS_PROBES))
+            for i in range(N_CLIENTS)]
+
+
+class FedAvgProbe:
+    """Wraps each client's local_train and local step (the package is not
+    edited): the n_samples-weighted sum of a round's local models, the
+    plaintext FedAvg the recovered global model is held against, and each
+    local step's time (synchronized)."""
+
+    def __init__(self, clients):
+        self.acc, self.n, self.steps = None, 0, []
+        for c in clients:
+            self._wrap(c)
+
+    def _wrap(self, c):
+        train, step = c.local_train, c._step
+
+        def timed_step(*args):
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            self.steps.append(time.perf_counter() - t)
+            return out
+
+        def capture(glob):
+            local, loss = train(glob)
+            flat = packing.flatten_params(local)[0] * float(c.n_samples)
+            self.acc = flat if self.acc is None else self.acc.add_(flat)
+            self.n += c.n_samples
+            return local, loss
+
+        c._step, c.local_train = timed_step, capture
+
+    def take(self):
+        """The plaintext FedAvg of the round so far; starts the next."""
+        expect = self.acc / self.n
+        self.acc, self.n = None, 0
+        return expect
+
+
+def counted(what, fn, want, by_path, stats):
+    """fn under the launch counters (0 just before, read just after),
+    torch.profiler (host clock, device busy share) and the peak memory."""
+    def run(*args):
+        torch.cuda.reset_peak_memory_stats()
+        st = {}
+        ops.reset_launch_counts()
+        with traced(what, st):
+            out = fn(*args)
+        by_path[what] = ops.launch_counts()
+        st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats[what] = st
+        log(f"{what}: host clock {st['wall_ms'] / 1e3:.3f} s, device busy "
+            f"share {st['busy_share']:.4f}, peak device memory "
+            f"{st['peak_gib']:.2f} GiB")
+        check_launches(what, by_path[what], want)
+        return out
+    return run
+
+
+def fl_loop(seed, cfg, make_ctx, dev, want_leaves, ckpt_dir):
+    """Phase 9: FLTask.run() of `cfg` -- keys, the encryption mask agreed
+    over HE, FL_ROUNDS wire rounds with checkpoints -- then a fresh FLTask
+    resuming from the checkpoints.  Returns its launch counts by stage and
+    its numbers."""
+    model = models.build_model(cfg, device=dev)
+    clients = fl_clients(model, cfg, seed, MODEL_SEQ)
+    probe = FedAvgProbe(clients)
+    agg_cfg = AggregatorConfig(strategy="top_p", p_ratio=P_RATIO)
+    run_cfg = FLRunConfig(
+        n_rounds=FL_ROUNDS, ckpt_dir=ckpt_dir, ckpt_every=1, seed=seed,
+        wire_policy=compress.WirePolicy(seed_ciphertexts=True,
+                                        plain_codec=PLAIN_CODEC))
+    ctx = make_ctx()
+    want = fl_stage_launches(cfg.param_count(), ctx.slots)
+    by_path, stats, out = {}, {}, {"map_s": []}
+    task = counted("fl_keys", FLTask, want["keys"], by_path, stats)(
+        model, clients, agg_cfg, run_cfg, ctx)
+    n_params = sum(p.numel() for p in leaves(task.global_params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"fl_loop: {n_params} parameters")
+
+    # stage 2: time each map and the HE fold; keep the maps for the checks
+    for c in clients:
+        def timed_map(p, real=c.sensitivity_map):
+            t = time.perf_counter()
+            smap = real(p)
+            torch.cuda.synchronize()
+            out["map_s"].append(time.perf_counter() - t)
+            return smap
+        c.sensitivity_map = timed_map
+    real_agree = secure_agg.agree_sensitivity
+    held = {}
+
+    def agree(ctx_, pk, sk, maps, weights, gen):
+        t = time.perf_counter()
+        glob = real_agree(ctx_, pk, sk, maps, weights, gen)
+        torch.cuda.synchronize()
+        out["he_fold_s"] = time.perf_counter() - t
+        held.update(maps=list(maps), glob=glob)
+        return glob
+
+    stage2 = counted("fl_mask", task.agree_encryption_mask, want["mask"],
+                     by_path, stats)
+
+    def agree_encryption_mask():
+        secure_agg.agree_sensitivity = agree
+        try:
+            result = stage2()
+        finally:
+            secure_agg.agree_sensitivity = real_agree
+        out.update(check_fl_mask(task, held.pop("maps"), held.pop("glob"),
+                                 n_params))
+        return result
+
+    real_round = task.run_round
+
+    def run_round(rnd):
+        log_ = counted(f"fl_round_{rnd}", real_round, want["wire_round"],
+                       by_path, stats)(rnd)
+        out.setdefault("round_err", []).append(check_recovered(
+            f"fl_round_{rnd}", task.global_params, probe.take(),
+            shapes=want_leaves))
+        return log_
+
+    task.agree_encryption_mask = agree_encryption_mask
+    task.run_round = run_round
+    logs = task.run()
+    part = task.aggregator.part
+    up = uplink_blob_bytes(part.n_chunks, ctx.n_limbs, ctx.n_poly,
+                           part.n_plain)
+    down = downlink_blob_bytes(part.n_chunks, ctx.n_limbs, ctx.n_poly,
+                               part.n_plain)
+    for lg in logs:
+        log(f"fl RoundLog: {json.dumps(dataclasses.asdict(lg))}")
+    if [lg.round for lg in logs] != list(range(FL_ROUNDS)):
+        raise AssertionError(f"fl_loop: rounds {[lg.round for lg in logs]}")
+    for lg in logs:
+        if not (lg.comm_measured and lg.n_participating == N_CLIENTS
+                and lg.comm_up_bytes == N_CLIENTS * up
+                and lg.comm_down_bytes == N_CLIENTS * down
+                and lg.comm_bytes == lg.comm_up_bytes + lg.comm_down_bytes
+                and math.isfinite(lg.loss)):
+            raise AssertionError(
+                f"fl_loop round {lg.round}: {lg} against {N_CLIENTS} x "
+                f"({up} up, {down} down) bytes of the frame layout")
+
+    # resume: a fresh task on the same checkpoints runs no round
+    t = time.perf_counter()
+    task2 = FLTask(model, clients, agg_cfg, run_cfg, ctx)
+    task2.aggregator, task2.server = task.aggregator, task.server
+    if task2.run() or task2._start_round != FL_ROUNDS:
+        raise AssertionError(f"fl_loop: the fresh task resumed at round "
+                             f"{task2._start_round}, not {FL_ROUNDS}")
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(task.global_params), leaves(task2.global_params)))
+    log(f"fl resume: a fresh FLTask on the checkpoints starts at round "
+        f"{task2._start_round} and runs no round; global parameters "
+        f"bit-identical to round {FL_ROUNDS - 1}'s: {same} "
+        f"({time.perf_counter() - t:.3f} s)")
+    if not same:
+        raise AssertionError("fl_loop: resumed parameters differ")
+    out.update(logs=logs, stats=stats, steps=probe.steps,
+               n_chunks=part.n_chunks, up=up, down=down)
+    return by_path, out
+
+
+def check_fl_mask(task, maps, glob, n_params):
+    """Stage 2's checks: the decrypted global map within the CKKS bound of
+    the maps' plaintext mean; the mask's size; its overlap with the
+    plaintext mean's mask (printed: at init the maps may sit near the CKKS
+    noise)."""
+    plain = sum(maps) / len(maps)
+    del maps
+    err = float((glob - plain).abs().max())
+    part = task.aggregator.part
+    n_mask = int(round(P_RATIO * n_params))
+    overlap = int((part.mask.to(plain.device)
+                   & selection.top_p_mask(plain, P_RATIO)).sum())
+    log(f"fl_mask: HE global map vs the plaintext mean of {N_CLIENTS} maps: "
+        f"max |diff| {err:.3e} (bound {MAX_ERR}; map max "
+        f"{float(plain.abs().max()):.3e}, mean {float(plain.mean()):.3e}); "
+        f"mask {part.n_enc} of {part.n_total} in {part.n_chunks} "
+        f"ciphertexts a client; overlap with the plaintext mean's mask "
+        f"{overlap / max(1, n_mask):.4f}")
+    if not err < MAX_ERR:
+        raise AssertionError(f"fl_mask: global map error {err}")
+    if part.n_enc != n_mask or part.n_total != n_params:
+        raise AssertionError(f"fl_mask: the mask holds {part.n_enc} of "
+                             f"{part.n_total}, not {n_mask}")
+    return {"map_err": err, "overlap": overlap / max(1, n_mask)}
+
+
+def ssm_fl(seed, cfg, ctx, dev, n_params):
+    """Step 9b: one in-memory FLTask round of `cfg` (three clients, two
+    local AdamW steps of B x SSM_SEQ, the HE mask); returns its launch
+    counts and numbers."""
+    model = models.build_model(cfg, device=dev)
+    clients = fl_clients(model, cfg, seed, SSM_SEQ)
+    probe = FedAvgProbe(clients)
+    want = fl_stage_launches(n_params, ctx.slots)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    task = FLTask(model, clients,
+                  AggregatorConfig(strategy="top_p", p_ratio=P_RATIO),
+                  FLRunConfig(n_rounds=1, seed=seed), ctx)
+    logs = task.run()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    shapes = map_tree(lambda p: tuple(p.shape), task.global_params)
+    if sum(math.prod(s) for s in leaves(shapes)) != n_params:
+        raise AssertionError(f"ssm_fl: not {n_params} parameters")
+    err = check_recovered(f"ssm_fl ({cfg.name})", task.global_params,
+                          probe.take(), shapes=shapes)
+    check_launches("ssm_fl", counts, {
+        k: want["keys"][k] + want["mask"][k] + want["in_memory_round"][k]
+        for k in KERNELS})
+    n_chunks = task.aggregator.part.n_chunks
+    if n_chunks != -(-int(round(P_RATIO * n_params)) // ctx.slots):
+        raise AssertionError(f"ssm_fl: {n_chunks} ciphertexts a client")
+    tokens = MODEL_BATCH * SSM_SEQ
+    log(f"ssm_fl {cfg.name}: {n_params} parameters, {n_chunks} ciphertexts "
+        f"a client, local steps "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in probe.steps)} ms "
+        f"({tokens / min(probe.steps):.0f} tokens/s at the fastest), "
+        f"RoundLog loss {logs[0].loss:.4f}, FedAvg error {err:.3e}, host "
+        f"clock {host_s:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return counts, {"err": err, "steps": probe.steps, "host_s": host_s,
+                    "n_chunks": n_chunks}
+
+
+def hybrid_gradients(seed, arch, dev, n_params):
+    """Step 9c: the loss and gradient of `arch` at B = 1, S = HYBRID_SEQ
+    (bf16 compute, float32 master weights, remat), then decode against
+    prefill on the same weights in float32."""
+    cfg = configs.get_config(arch)
+    model = models.build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    got = sum(p.numel() for p in leaves(params))
+    if not got == n_params == cfg.param_count():
+        raise AssertionError(f"{cfg.name}: {got} parameters")
+    batch = on_device(make_client_streams(1, cfg.vocab, seq_len=HYBRID_SEQ,
+                                          batch_size=1, seed=seed)[0]
+                      .next_batch(), dev)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, grads = models.value_and_grad(model.loss_fn)(params, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = float(loss)
+    finite = all(bool(torch.isfinite(g).all()) for g in leaves(grads))
+    del grads
+    log(f"hybrid {cfg.name}: {got} parameters, loss {loss:.4f} at B=1 "
+        f"S={HYBRID_SEQ}, gradients finite: {finite}, loss+grad {dt:.3f} s, "
+        f"peak device memory {peak:.2f} GiB")
+    if not (math.isfinite(loss) and 0 < loss < 3 * math.log(cfg.vocab)
+            and finite):
+        raise AssertionError(f"hybrid: loss {loss} or gradients out of "
+                             "range")
+    err = decode_check(seed, dev, arch, params)
+    return {"loss": loss, "grad_s": dt, "peak_gib": peak, "decode_err": err}
 
 
 def main():
@@ -2028,6 +2386,19 @@ def main():
     moe_share = moe_gradients(args.seed, dev)
     torch.cuda.empty_cache()
     decode_err = decode_check(args.seed, dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        fl_paths, fl = fl_loop(args.seed, configs.get_config(MODEL_ARCH),
+                               params.make_context, dev, QWEN_LEAVES, d)
+    by_path.update(fl_paths)
+    gc.collect()          # the wrapped clients' closures hold cycles
+    torch.cuda.empty_cache()
+    by_path["ssm_fl"], ssm = ssm_fl(args.seed, configs.get_config(SSM_ARCH),
+                                    params.make_context(), dev, SSM_PARAMS)
+    ssm_decode = decode_check(args.seed, dev, SSM_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hyb = hybrid_gradients(args.seed, HYBRID_ARCH, dev, HYBRID_PARAMS)
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
@@ -2054,6 +2425,33 @@ def main():
         f"a profiled step's device busy share "
         f"{step_stats['busy_share']:.4f}; {MOE_ARCH} "
         f"dropped share {moe_share:.4f}; decode error {decode_err:.3e}")
+    st = fl["stats"]
+    log(f"FL loop ({MODEL_ARCH}, FLTask.run(), {N_CLIENTS} clients, "
+        f"{LOCAL_STEPS} local AdamW steps of {tokens} tokens a round, "
+        f"{FL_ROUNDS} wire rounds): keys {st['fl_keys']['wall_ms'] / 1e3:.3f}"
+        f" s; mask {st['fl_mask']['wall_ms'] / 1e3:.3f} s (maps "
+        f"{', '.join(f'{s:.3f}' for s in fl['map_s'])} s, HE fold "
+        f"{fl['he_fold_s']:.3f} s, busy share "
+        f"{st['fl_mask']['busy_share']:.4f}, peak "
+        f"{st['fl_mask']['peak_gib']:.2f} GiB, map error {fl['map_err']:.3e},"
+        f" mask overlap {fl['overlap']:.4f}); rounds "
+        + "; ".join(
+            f"{r}: {st[f'fl_round_{r}']['wall_ms'] / 1e3:.3f} s, busy share "
+            f"{st[f'fl_round_{r}']['busy_share']:.4f}, peak "
+            f"{st[f'fl_round_{r}']['peak_gib']:.2f} GiB, loss "
+            f"{fl['logs'][r].loss:.4f}, FedAvg error {fl['round_err'][r]:.3e}"
+            for r in range(FL_ROUNDS))
+        + f"; {fl['n_chunks']} ciphertexts a client, bytes a round "
+        f"{fl['logs'][0].comm_up_bytes} up / {fl['logs'][0].comm_down_bytes} "
+        f"down (measured); local steps "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in fl['steps'])} ms")
+    log(f"ssm and hybrid ({SSM_ARCH} in-memory FL round: local steps "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in ssm['steps'])} ms, "
+        f"{MODEL_BATCH * SSM_SEQ / min(ssm['steps']):.0f} tokens/s at the "
+        f"fastest, host clock {ssm['host_s']:.3f} s, FedAvg error "
+        f"{ssm['err']:.3e}, decode error {ssm_decode:.3e}; {HYBRID_ARCH}: "
+        f"loss {hyb['loss']:.4f}, loss+grad {hyb['grad_s']:.3f} s, peak "
+        f"{hyb['peak_gib']:.2f} GiB, decode error {hyb['decode_err']:.3e})")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

@@ -155,14 +155,7 @@ class SelectiveHEAggregator:
             coeffs = sharded.decrypt_to_coeffs(sk, agg.ct)
         else:
             coeffs = cipher.decrypt_to_coeffs(self.ctx, sk, agg.ct)
-        if agg.ct.n_limbs == 2:
-            enc = encoding.decode(coeffs, self.ctx, agg.ct.scale)
-        else:
-            # the torch decode path is 2-limb only; any limb count goes
-            # through the host path
-            enc = torch.from_numpy(encoding.decode_np(
-                coeffs.cpu().numpy().view(np.uint32), self.ctx,
-                agg.ct.scale)).to(torch.float32).to(self.ctx.device)
+        enc = decode_coeffs(self.ctx, coeffs, agg.ct.scale)
         return packing.merge_by_mask(enc, agg.plain, self.part)
 
     def client_recover_params(self, agg: ProtectedUpdate, sk: dict,
@@ -221,29 +214,69 @@ class SelectiveHEAggregator:
 # ---------------------------------------------------------------------------
 
 
+# The most ciphertexts a client encrypts at once in agree_sensitivity: the
+# in-memory round's row count at Qwen1.5-0.5B width, three clients of which
+# an 80 GB card is known to hold.  At that width a map is 113,279
+# ciphertexts, 14.85 GB a client, so the maps fold in 10 blocks.
+SENSITIVITY_BLOCK_ROWS = 11_328
+
+
+def decode_coeffs(ctx: CkksContext, coeffs, scale: float):
+    """Decrypted coefficient residues int32[B, L, N] -> float32[B, slots] on
+    ctx's device: the torch decode at 2 limbs; any other limb count goes
+    through the host path."""
+    if coeffs.shape[1] == 2:
+        return encoding.decode(coeffs, ctx, scale)
+    return torch.from_numpy(encoding.decode_np(
+        coeffs.cpu().numpy().view(np.uint32), ctx, scale)).to(
+            torch.float32).to(ctx.device)
+
+
 def agree_sensitivity(ctx: CkksContext, pk: dict, sk: dict,
                       local_sens_vecs, weights: Sequence[float],
                       gen: torch.Generator):
-    """HE-aggregate the clients' local sensitivity maps -> global map
-    (float64 numpy, host decode).  Each client encrypts its map under pk;
-    the server weighted-sums the ciphertexts; the decrypted aggregate is the
-    shared global sensitivity."""
-    vecs = [torch.as_tensor(s).reshape(-1).cpu().numpy()
+    """HE-aggregate the clients' local sensitivity maps -> global map, a
+    float32 tensor on the context's device.  Each client encrypts its map
+    under pk; the server weighted-sums the ciphertexts; the decrypted
+    aggregate is the shared global sensitivity.
+
+    The maps fold in blocks of at most SENSITIVITY_BLOCK_ROWS ciphertexts:
+    for each block every client's rows are encoded and encrypted on the
+    card, weighted-summed, decrypted and decoded, and only the decoded
+    floats outlive the block (the JAX package encrypts whole maps, which at
+    Qwen1.5-0.5B width would hold 44.5 GB of ciphertexts for three
+    clients).  The result is the same function: the weighted mean of the
+    maps within the CKKS error."""
+    vecs = [torch.as_tensor(s).reshape(-1).to(ctx.device, torch.float32)
             for s in local_sens_vecs]
-    n = int(vecs[0].size)
-    slots = ctx.slots
+    n, slots = vecs[0].numel(), ctx.slots
     n_chunks = -(-n // slots)
-    cts = []
-    for s in vecs:
-        buf = np.zeros(n_chunks * slots, dtype=np.float32)
-        buf[:n] = s
-        coeffs = encoding.encode_np(buf.reshape(n_chunks, slots), ctx)
-        coeffs = torch.from_numpy(coeffs.view(np.int32)).to(ctx.device)
-        cts.append(cipher.encrypt_coeffs(ctx, pk, coeffs, gen))
-    stacked = Ciphertext(data=torch.stack([c.data for c in cts]),
-                         scale=cts[0].scale)
-    agg = cipher.weighted_sum(ctx, stacked, list(weights))
-    return cipher.decrypt_values_np(ctx, sk, agg).ravel()[:n]
+    out = torch.empty(n, dtype=torch.float32, device=ctx.device)
+    for r0 in range(0, n_chunks, SENSITIVITY_BLOCK_ROWS):
+        rows = min(n_chunks - r0, SENSITIVITY_BLOCK_ROWS)
+        lo, hi = r0 * slots, min(n, (r0 + rows) * slots)
+        cts = None
+        for k, v in enumerate(vecs):
+            buf = torch.zeros(rows * slots, dtype=torch.float32,
+                              device=ctx.device)
+            buf[: hi - lo] = v[lo:hi]
+            ct = cipher.encrypt_values(ctx, pk, buf.reshape(rows, slots),
+                                       gen)
+            del buf
+            if cts is None:   # the clients' rows in one buffer: no stack
+                cts = torch.empty((len(vecs), *ct.data.shape),
+                                  dtype=ct.data.dtype, device=ctx.device)
+            cts[k] = ct.data
+            scale = ct.scale
+            del ct
+        agg = cipher.weighted_sum(ctx, Ciphertext(data=cts, scale=scale),
+                                  list(weights))
+        del cts
+        coeffs = cipher.decrypt_to_coeffs(ctx, sk, agg)
+        out[lo:hi] = decode_coeffs(ctx, coeffs, agg.scale).reshape(-1)[
+            : hi - lo]
+        del agg, coeffs
+    return out
 
 
 def agree_mask(ctx: CkksContext, pk: dict, sk: dict, local_sens_vecs,
@@ -254,6 +287,5 @@ def agree_mask(ctx: CkksContext, pk: dict, sk: dict, local_sens_vecs,
     them; clients decrypt the aggregate and derive the selection mask
     (bool tensor on the context's device)."""
     s_glob = agree_sensitivity(ctx, pk, sk, local_sens_vecs, weights, gen)
-    return selection.build_mask(torch.from_numpy(s_glob).to(ctx.device),
-                                strategy, p, offsets=offsets, sizes=sizes,
-                                seed=seed)
+    return selection.build_mask(s_glob, strategy, p, offsets=offsets,
+                                sizes=sizes, seed=seed)

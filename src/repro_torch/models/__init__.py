@@ -1,5 +1,6 @@
-"""Unified model API over the transformer families (dense, moe, vlm,
-encoder), the JAX package's `repro.models`.
+"""Unified model API over all architecture families (dense, moe, vlm,
+encoder: `transformer`; ssm: `mamba2`; hybrid: `zamba2`), the JAX
+package's `repro.models`.
 
 ``build_model(cfg, ax, device)`` returns a ``Model``:
   init(gen) -> params                    (real weights drawn from gen)
@@ -20,8 +21,6 @@ module's parameters to the new tree; before it they are on the meta device.
 
 Gradients come from `value_and_grad` (torch.autograd): torch.func.grad
 refuses the saved-tensor hooks of cfg.remat's checkpointing.
-
-The ssm and hybrid families (mamba2, zamba2) are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,11 +32,23 @@ from torch import nn
 
 from repro_torch.core import packing
 from repro_torch.core.ckks.params import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer, zamba2
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import AxisEnv, CPU_ENV, param_specs
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "encoder")
+
+
+def family_module(cfg: ModelConfig):
+    """The module holding cfg's family: init_abstract, loss_fn,
+    forward_logits, prefill, decode_step and abstract_cache."""
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return transformer
+    if cfg.family == "ssm":
+        return mamba2
+    if cfg.family == "hybrid":
+        return zamba2
+    raise ValueError(f"unknown family {cfg.family}")
 
 
 def _named(tree, prefix=""):
@@ -51,12 +62,14 @@ def _named(tree, prefix=""):
     return out
 
 
-class TransformerModule(nn.Module):
-    """Holds the parameter tree; forward(batch) is the training loss."""
+class ModelModule(nn.Module):
+    """Holds the parameter tree; forward(batch) is the training loss of
+    cfg's family."""
 
     def __init__(self, cfg: ModelConfig, ax: AxisEnv, tree: dict):
         super().__init__()
         self.cfg, self.ax = cfg, ax
+        self.family = family_module(cfg)
         self.set_tree(tree)
 
     def set_tree(self, tree: dict, _owner=None) -> None:
@@ -83,7 +96,7 @@ class TransformerModule(nn.Module):
         return visit(self)
 
     def forward(self, batch):
-        return transformer.loss_fn(self.tree(), batch, self.cfg, self.ax)
+        return self.family.loss_fn(self.tree(), batch, self.cfg, self.ax)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +104,7 @@ class Model:
     cfg: ModelConfig
     ax: AxisEnv
     device: torch.device
-    module: TransformerModule
+    module: ModelModule
     init: Callable
     loss_fn: Callable
     prefill: Callable | None
@@ -104,7 +117,7 @@ class Model:
         return self.module.tree(detach=True)
 
     def init_abstract(self) -> dict:
-        return transformer.init_abstract(self.cfg)
+        return family_module(self.cfg).init_abstract(self.cfg)
 
     def param_specs(self, mode: str = "train"):
         return param_specs(self.init_abstract(), self.ax, mode=mode)
@@ -114,38 +127,37 @@ def build_model(cfg: ModelConfig, ax: AxisEnv = CPU_ENV,
                 device=None) -> Model:
     """The model of `cfg` on `device` (CUDA unless the caller names
     another; raises without one)."""
-    fam = cfg.family
-    if fam not in TRANSFORMER_FAMILIES:
-        if fam in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"the {fam} family ({cfg.name}) is not ported yet: see "
-                "ROADMAP.md Queue A item 3 (models/mamba2.py, "
-                "models/zamba2.py)")
-        raise ValueError(f"unknown family {fam}")
+    fam = family_module(cfg)
     dev = resolve_device(device)
-    module = TransformerModule(cfg, ax, transformer.init_abstract(cfg))
+    module = ModelModule(cfg, ax, fam.init_abstract(cfg))
+    init_tree = transformer.init if fam is transformer else fam.init_model
 
     def init(gen: torch.Generator) -> dict:
-        module.set_tree(transformer.init(cfg, gen, dev))
+        module.set_tree(init_tree(cfg, gen, dev))
         return module.tree(detach=True)
 
     def loss(params, batch):
         return torch.func.functional_call(module, _named(params), (batch,))
 
-    if fam == "encoder":
+    if cfg.family == "encoder":
         # encoder inference = one bidirectional forward, no cache
         enc_fwd = lambda p, b, cache_len=None: (
             transformer.forward_logits(p, b, cfg, ax)[0], None)
         return Model(cfg, ax, dev, module, init, loss, prefill=enc_fwd,
                      decode_step=None, abstract_cache=None)
+    if fam is mamba2:
+        # the recurrent cache has no length
+        abstract_cache = lambda batch, cache_len=None, dtype=None: (
+            mamba2.abstract_cache(cfg, batch, dtype or cfg.dtype))
+    else:
+        abstract_cache = lambda batch, cache_len, dtype=None: (
+            fam.abstract_cache(cfg, batch, cache_len, dtype or cfg.dtype))
     return Model(
         cfg, ax, dev, module, init, loss,
-        prefill=lambda p, b, cache_len=None: transformer.prefill(
+        prefill=lambda p, b, cache_len=None: fam.prefill(
             p, b, cfg, ax, cache_len),
-        decode_step=lambda p, c, b: transformer.decode_step(p, c, b, cfg, ax),
-        abstract_cache=lambda batch, cache_len, dtype=None: (
-            transformer.abstract_cache(cfg, batch, cache_len,
-                                       dtype or cfg.dtype)),
+        decode_step=lambda p, c, b: fam.decode_step(p, c, b, cfg, ax),
+        abstract_cache=abstract_cache,
     )
 
 

@@ -149,8 +149,9 @@ def decode_attention(q, k_cache, v_cache, pos):
 # ---------------------------------------------------------------------------
 
 
-def init_attn(gen, cfg: ModelConfig, n_layers: int, device):
-    d = cfg.d_model
+def init_attn(gen, cfg: ModelConfig, n_layers: int, device,
+              d_in: int | None = None):
+    d = d_in or cfg.d_model
     hd = cfg.hd
     std = 0.02
     dt = dtype_of(cfg.param_dtype)
@@ -175,7 +176,7 @@ def init_attn(gen, cfg: ModelConfig, n_layers: int, device):
 
 
 def attn_qkv(p, i, x, cfg: ModelConfig, ax: sharding.AxisEnv, positions):
-    """x: [B, S, d] -> q [B,S,H,hd], k/v [B,S,KH,hd] (RoPE applied)."""
+    """x: [B, S, d_in] -> q [B,S,H,hd], k/v [B,S,KH,hd] (RoPE applied)."""
     b, s, _ = x.shape
     hd = cfg.hd
     q = x @ p["wq"][i].to(x.dtype)

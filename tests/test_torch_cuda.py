@@ -620,7 +620,8 @@ def test_wrappers_raise_on_what_they_do_not_take(cuda):
                                        t.qinv_negs)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "granite-moe-3b-a800m",
+                                  "mamba2-370m", "zamba2-7b"])
 def test_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
     """The same parameters and batch on the card and on the CPU (float32,
     TF32 off, remat on): loss to rtol 1e-5 and every gradient leaf to rtol
@@ -657,3 +658,57 @@ def test_smoke_model_on_the_card_matches_the_cpu(cuda, arch):
         assert g.device.type == "cuda"
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("wire", [False, True])
+def test_fl_task_on_the_card_recovers_the_fedavg(cuda, wire):
+    """FLTask.run() on the card (tests/test_fl.py's one-layer model, N=256
+    context, the HE mask, two rounds): each round's recovered model within
+    the quickstart's 1e-2 of the plaintext FedAvg of its local models, and
+    the round's kernels launched on the card."""
+    import dataclasses
+
+    from repro_torch import configs, models
+    from repro_torch.core import packing
+    from repro_torch.core.secure_agg import AggregatorConfig
+    from repro_torch.data import make_client_streams
+    from repro_torch.fl import (ClientConfig, FLClient, FLRunConfig, FLTask,
+                                WirePolicy)
+
+    cfg = dataclasses.replace(configs.get_config("qwen1.5-0.5b", smoke=True),
+                              n_layers=1, d_model=32, n_heads=2,
+                              n_kv_heads=2, d_ff=64, vocab=61)
+    model = models.build_model(cfg)
+    streams = make_client_streams(3, cfg.vocab, seq_len=8, batch_size=2)
+    clients = [FLClient(i, model, streams[i],
+                        ClientConfig(local_steps=1, sensitivity_probes=1))
+               for i in range(3)]
+    task = FLTask(model, clients, AggregatorConfig(p_ratio=0.2),
+                  FLRunConfig(n_rounds=2, wire_policy=WirePolicy() if wire
+                              else None),
+                  ctx=params.make_test_context(n_poly=256))
+    sent = []
+    for c in clients:
+        def train(glob, real=c.local_train, c=c):
+            local, loss = real(glob)
+            sent.append((c.n_samples, packing.flatten_params(local)[0]))
+            return local, loss
+        c.local_train = train
+    real_recover, errs = task._recover, []
+
+    def recover(agg):
+        glob = real_recover(agg)
+        n = sum(k for k, _ in sent)
+        fedavg = sum(k / n * v for k, v in sent)
+        errs.append(float((packing.flatten_params(glob)[0] - fedavg)
+                          .abs().max()))
+        sent.clear()
+        return glob
+    task._recover = recover
+    ops.reset_launch_counts()
+    logs = task.run()
+    assert [l.n_participating for l in logs] == [3, 3]
+    assert len(errs) == 2 and max(errs) < 1e-2
+    counts = ops.launch_counts()
+    assert counts["ntt_fwd"] > 0 and counts["ntt_inv"] == 3
+    assert counts["weighted_accum_chunks" if wire else "weighted_sum"] > 0
