@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
 
-Phases 1-9 and six steps between them (2b, 3b, 4b, 8b, 9b, 9c); any failure
+Phases 1-11 and six steps between them (2b, 3b, 4b, 8b, 9b, 9c); any failure
 exits non-zero, and without CUDA the script exits non-zero before doing
 anything:
 
@@ -133,13 +133,41 @@ anything:
    peak printed), then a prefill of 128 tokens and 4 decode_steps against
    a prefill of all 132 on the same weights in float32, within
    DECODE_MAX_ERR.  No AdamW step at this width: its two float32 moments
-   would add 53 GB to the 53 GB of weights and gradients.
+   would add 53 GB to the 53 GB of weights and gradients;
+10. the aggregation service (DESIGN.md §14) at full width, on phase 4's
+   three blobs (kept on the host since phase 4) and make_context():
+   (a) in memory, on the service's worker thread (start/stop): open_round,
+   the three blobs and a fourth -- blob 0 re-labelled cid 3 by
+   sim.rewrite_begin with one CT_CHUNK dropped by faults.corrupt_blob --
+   which passes the door and fails at fold time; seal, and the round must
+   end DONE with one fold reject and one refold, its aggregate (residues,
+   plain sum, scale) equal to phase 4's bit for bit;
+   (b) with a checkpoint directory (a temporary one, removed at the end)
+   and fold_batch 2, a FaultInjector crash at after_fold_step: the worker
+   folds blobs 0 and 1, checkpoints and crashes; AggregationService.resume
+   rebuilds the service from that checkpoint and the spooled blobs and
+   finishes the round, equal to phase 4's aggregate bit for bit, with the
+   replayed BandwidthLedger equal to phase 4's uplink bytes.  Each of the
+   three runs is counted (SERVE_LAUNCHES) and profiled; the resume is
+   timed, and each checkpoint save by its serve.checkpoint span.  A worker
+   error is re-raised after stop();
+11. the training driver at full width: launch.train.main of Qwen1.5-0.5B
+   (--no-smoke, B = 2, S = 256, TRAIN_STEPS steps, a checkpoint every
+   TRAIN_CKPT_EVERY) on the card; its checkpoints are copied without the
+   last step and the same command resumes from the copy ("resumed from
+   step 2", steps 3-5).  The restored {"p", "o"} must equal the saved
+   bytes, and the resumed losses and final {"p", "o"} the uninterrupted
+   run's, bit for bit.  Each step's time and tokens/s, each save's and the
+   restore's time (the driver's train.* spans) and the peak are printed.
 
-Phases 3, 3b, 4, 5, 6, 7 and 8, each stage and round of phase 9 and step
-9b run with the launch counters set to 0 just before and read just after;
-3-7 and phase 9's stages and rounds under torch.profiler (device busy
-share, time by kernel), phase 8 and step 9b without it (their step times
-are the card's); phases 3-6, 8 and 9 with obs disabled.
+Phases 3, 3b, 4, 5, 6, 7 and 8, each stage and round of phase 9, step
+9b and the three runs of phase 10 run with the launch counters set to 0
+just before and read just after; 3-7, phase 9's stages and rounds and
+phase 10's runs under torch.profiler (device busy share, time by kernel),
+phase 8 and step 9b without it (their step times are the card's); phases
+3-6, 8, 9 and 10(a) with obs disabled, 10(b) and 11 with obs on in
+memory (its spans time the saves and steps; its kernel hooks synchronize
+each kernel op).
 Each must recover the plaintext FedAvg within 1e-2 (the quickstart's
 bound; phase 7 within THRESHOLD_MAX_ERR) with exactly its expected launch
 counts; the wire round must also
@@ -148,7 +176,8 @@ fold with one accumulate launch per client and hold at most one update's
 transcipher round.
 
 The last lines are the threshold round's, the model round's, the FL
-loop's and steps 9b/9c's summaries, the card's name and power limit
+loop's, steps 9b/9c's, the service's and the training driver's
+summaries, the card's name and power limit
 (nvidia-smi), one JSON line with every kernel's numbers, and the JSON
 result line.
 """
@@ -159,6 +188,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -170,7 +200,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import configs, interop, models, obs  # noqa: E402
+from repro_torch import configs, interop, models, obs, serve  # noqa: E402
 from repro_torch.ckpt import CheckpointManager  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     packing, secure_agg, selection, sensitivity)
@@ -183,6 +213,9 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.fl import (  # noqa: E402
     ClientConfig, FLClient, FLRunConfig, FLTask, ThresholdKeyAuthority)
 from repro_torch.launch import fl_step, mesh as he_mesh  # noqa: E402
+from repro_torch.launch import train as train_driver  # noqa: E402
+from repro_torch.serve import faults as serve_faults  # noqa: E402
+from repro_torch.serve import sim as serve_sim  # noqa: E402
 from repro_torch.wire import budget, compress, format as wf  # noqa: E402
 from repro_torch.wire import stream  # noqa: E402
 from repro_torch.data import make_client_streams  # noqa: E402
@@ -1102,6 +1135,7 @@ def wire_round(seed, st):
     up_sizes = [len(b) for b in blobs]
     # for the checkpoint step and phase 6
     st["blobs"], st["wire_aggregate"] = blobs, glob.ct.data
+    st["wire_scale"] = glob.ct.scale
     st["wire_plain"], st["ledger"] = glob.plain, ledger
 
     t = time.perf_counter()
@@ -2303,6 +2337,348 @@ def hybrid_gradients(seed, arch, dev, n_params):
     return {"loss": loss, "grad_s": dt, "peak_gib": peak, "decode_err": err}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the aggregation service at full width
+# ---------------------------------------------------------------------------
+
+# Phase 10 sends phase 4's three blobs through serve.AggregationService,
+# with a fourth: blob 0 re-labelled cid 3 (sim.rewrite_begin) with one
+# CT_CHUNK frame dropped (faults.corrupt_blob "drop").  Each good blob
+# folds in one weighted_accum_chunks launch (the wire round's count); the
+# fourth fails StreamIngest's chunk-count check before its flush, so it
+# launches nothing.  (a) one fold_batch takes all four: blobs 0-2 (3
+# launches), the reject, then one refold of the three survivors (3 more).
+# (b) folds SERVE_FOLD_BATCH blobs a step: the crashed service folds blobs
+# 0 and 1 (2 launches) and crashes after that step's checkpoint; the
+# resumed one restores the accumulator (no kernel) and folds blob 2 (1).
+# Nothing else launches: the result is the ingest's finalize, a gather.
+SERVE_FOLD_BATCH = 2
+SERVE_LAUNCHES = {
+    "serve_fault": launches(weighted_accum_chunks=3 + N_CLIENTS),
+    "serve_crash": launches(weighted_accum_chunks=SERVE_FOLD_BATCH),
+    "serve_resume": launches(
+        weighted_accum_chunks=N_CLIENTS - SERVE_FOLD_BATCH),
+}
+SERVE_WAIT_S = 900.0    # a round that is not DONE by then fails the phase
+
+
+def wait_for(svc, done, what):
+    """Poll until done() holds or the worker parks an error; raise on
+    timeout."""
+    t_end = time.perf_counter() + SERVE_WAIT_S
+    while not done() and svc.worker_error is None:
+        if time.perf_counter() > t_end:
+            raise AssertionError(f"{what}: not done in {SERVE_WAIT_S} s")
+        time.sleep(0.01)
+
+
+def check_serve_result(what, glob, ref):
+    """The service's aggregate against phase 4's, bit for bit."""
+    if not torch.equal(glob.ct.data.cpu(), ref["ct"]):
+        raise AssertionError(f"{what}: the aggregate's residues differ "
+                             "from phase 4's")
+    if not torch.equal(glob.plain.cpu().view(torch.int32),
+                       ref["plain"].view(torch.int32)):
+        raise AssertionError(f"{what}: the plain sum differs from phase "
+                             "4's")
+    if glob.ct.scale != ref["scale"]:
+        raise AssertionError(f"{what}: scale {glob.ct.scale} != "
+                             f"{ref['scale']}")
+
+
+@contextlib.contextmanager
+def obs_spans(out):
+    """Telemetry on, in memory, over a block (obs's kernel hooks then
+    synchronize each kernel op); at its end each span is appended to
+    `out` as (name, args, seconds), and telemetry is off again."""
+    obs.configure(enabled=True, trace_path=None, reset=True)
+    try:
+        yield
+        out.extend((e["name"], e["args"], e["dur"] / 1e6)
+                   for e in obs.get_tracer().events if e.get("ph") == "X")
+    finally:
+        obs.configure(enabled=False, trace_path=None, reset=True)
+
+
+def serve_phase(seed, ref, by_path):
+    """Phase 10: (a) a faulty fourth blob rejected at fold time and one
+    refold, on the worker thread, in memory; (b) a crash after the first
+    fold step, checkpointed to a temporary directory, resumed from it.
+    Both aggregates must equal phase 4's bit for bit."""
+    ctx = params.make_context()
+    blobs, stats = ref["blobs"], {}
+    bad_cid = N_CLIENTS
+    t = time.perf_counter()
+    bad = serve_faults.corrupt_blob(
+        serve_sim.rewrite_begin(blobs[0], cid=bad_cid), "drop",
+        np.random.RandomState(seed))
+    log(f"serve: the faulty blob (cid {bad_cid}, one CT_CHUNK dropped) "
+        f"{len(bad)} bytes in {time.perf_counter() - t:.3f} s")
+    pol = serve.QuorumPolicy(min_clients=N_CLIENTS)
+
+    # (a) fault and refold, in memory, on the worker thread
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    st = {}
+    with traced("serve_fault", st):
+        svc = serve.AggregationService(ctx, pol)
+        svc.start()
+        try:
+            rnd = svc.open_round()
+            for b in blobs + [bad]:
+                if not svc.submit(b).accepted:
+                    raise AssertionError("serve_fault: a blob was refused "
+                                         "at the door")
+            svc.seal()
+            wait_for(svc, lambda: svc.status(rnd) in (serve.ST_DONE,
+                                                      serve.ST_FAILED),
+                     "serve_fault")
+        finally:
+            svc.stop()
+        if svc.worker_error is not None:
+            raise svc.worker_error
+        glob = svc.result(rnd)
+    by_path["serve_fault"] = ops.launch_counts()
+    st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    stats["serve_fault"] = st
+    info = svc.round_info(rnd)
+    log(f"serve_fault: round_info {json.dumps(info)}")
+    if not (info["bad_after_accept"] == 1 and info["refolds"] == 1
+            and info["folded"] == N_CLIENTS
+            and info["rejected"] == {"wire:WireError": 1}):
+        raise AssertionError("serve_fault: not one fold reject and one "
+                             "refold")
+    check_serve_result("serve_fault", glob, ref)
+    check_launches("serve_fault", by_path["serve_fault"],
+                   SERVE_LAUNCHES["serve_fault"])
+    del svc, glob
+    torch.cuda.empty_cache()
+
+    # (b) crash after the first fold step, resume from the checkpoint
+    with tempfile.TemporaryDirectory() as d:
+        free = shutil.disk_usage(d).free
+        log(f"serve_crash: checkpoint directory with {free / 1e9:.1f} GB "
+            "free")
+        spans, ledger = [], budget.BandwidthLedger()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        st = {}
+        with obs_spans(spans), traced("serve_crash", st):
+            inj = serve.FaultInjector(crash_at=["after_fold_step"])
+            svc = serve.AggregationService(
+                ctx, pol, ckpt_dir=d, fold_batch=SERVE_FOLD_BATCH,
+                faults=inj, ledger=ledger)
+            svc.start()
+            try:
+                rnd = svc.open_round()
+                for i, b in enumerate(blobs):
+                    t = time.perf_counter()
+                    if not svc.submit(b).accepted:
+                        raise AssertionError("serve_crash: a blob was "
+                                             "refused at the door")
+                    log(f"serve_crash: submit[{i}] (spool + ledger) "
+                        f"{time.perf_counter() - t:.3f} s")
+                svc.seal()
+                wait_for(svc, lambda: False, "serve_crash")
+            finally:
+                svc.stop()
+        by_path["serve_crash"] = ops.launch_counts()
+        st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats["serve_crash"] = st
+        if not (isinstance(svc.worker_error, serve.SimulatedCrash)
+                and inj.fired == ["after_fold_step"]):
+            raise AssertionError(f"serve_crash: the worker ended with "
+                                 f"{svc.worker_error!r}, not the crash")
+        check_launches("serve_crash", by_path["serve_crash"],
+                       SERVE_LAUNCHES["serve_crash"])
+        del svc
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        st = {}
+        with obs_spans(spans), traced("serve_resume", st):
+            led2 = budget.BandwidthLedger()
+            t = time.perf_counter()
+            svc = serve.AggregationService.resume(
+                d, ctx, pol, fold_batch=SERVE_FOLD_BATCH, ledger=led2)
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t
+            svc.start()
+            try:
+                wait_for(svc, lambda: svc.status(rnd) in (serve.ST_DONE,
+                                                          serve.ST_FAILED),
+                         "serve_resume")
+            finally:
+                svc.stop()
+            if svc.worker_error is not None:
+                raise svc.worker_error
+            glob = svc.result(rnd)
+        by_path["serve_resume"] = ops.launch_counts()
+        st["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats["serve_resume"] = st
+        info = svc.round_info(rnd)
+        log(f"serve_resume: round_info {json.dumps(info)}")
+        check_serve_result("serve_resume", glob, ref)
+        check_launches("serve_resume", by_path["serve_resume"],
+                       SERVE_LAUNCHES["serve_resume"])
+        up = led2.total(budget.UPLINK)
+        if not up == ref["up_bytes"] == N_CLIENTS * ref["blob_bytes"]:
+            raise AssertionError(f"serve_resume: the ledger's {up} uplink "
+                                 f"bytes != phase 4's {ref['up_bytes']}")
+        spool = sum(os.path.getsize(os.path.join(r, f))
+                    for r, _, fs in os.walk(os.path.join(d, "spool"))
+                    for f in fs)
+        ckpt_bytes = {name: os.path.getsize(os.path.join(d, name,
+                                                         "payload.npz"))
+                      for name in sorted(os.listdir(d))
+                      if name.startswith("step_")}
+        del svc, glob
+    saves = [(args["label"], sec) for name, args, sec in spans
+             if name == "serve.checkpoint"]
+    for label, sec in saves:
+        log(f"serve checkpoint save ({label}): {sec:.3f} s")
+    log(f"serve: resume (restore + spool reload) {resume_s:.3f} s; "
+        f"spool {spool} bytes; checkpoints kept {json.dumps(ckpt_bytes)}; "
+        f"ledger uplink {up} bytes == phase 4's")
+    for what in ("serve_fault", "serve_crash", "serve_resume"):
+        s_ = stats[what]
+        log(f"{what}: host clock {s_['wall_ms'] / 1e3:.3f} s, device busy "
+            f"share {s_['busy_share']:.4f}, peak device memory "
+            f"{s_['peak_gib']:.2f} GiB")
+    return {"stats": stats, "saves": saves, "resume_s": resume_s,
+            "up": up}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the training driver at full width
+# ---------------------------------------------------------------------------
+
+# launch.train's run: Qwen1.5-0.5B at full width and depth, B = 2 x S =
+# 256, TRAIN_STEPS AdamW steps with a checkpoint every TRAIN_CKPT_EVERY
+# (steps 2 and 5); then the same command on a copy of the checkpoints
+# without step 5 resumes at step 3.  Restored state, the resumed losses
+# and the final {"p", "o"} are held bit for bit: the card repeats them.
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
+
+
+class Tee:
+    """Write to stdout and keep a copy."""
+
+    def __init__(self):
+        self.out, self.lines = sys.stdout, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def train_phase(dev):
+    """Phase 11: launch.train.main twice on one checkpoint directory's
+    history; returns its numbers."""
+    argv = ["--arch", MODEL_ARCH, "--no-smoke", "--batch", str(MODEL_BATCH),
+            "--seq", str(MODEL_SEQ), "--steps", str(TRAIN_STEPS),
+            "--ckpt-every", str(TRAIN_CKPT_EVERY), "--log-every", "1",
+            "--device", dev.type]
+    resume_at = TRAIN_CKPT_EVERY - 1
+    last = f"step_{TRAIN_STEPS - 1:08d}"
+    kept = f"step_{resume_at:08d}"
+    spans1, spans2 = [], []
+    with tempfile.TemporaryDirectory() as root:
+        d1, d2 = os.path.join(root, "run1"), os.path.join(root, "run2")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with obs_spans(spans1):
+            full = train_driver.main(argv + ["--ckpt-dir", d1])
+        full_s = time.perf_counter() - t
+        peak1 = torch.cuda.max_memory_allocated() / 2 ** 30
+        n = sum(p.numel() for p in leaves(full["params"]))
+        if n != N_PARAMS:
+            raise AssertionError(f"train: {n} parameters, not {N_PARAMS}")
+        if sorted(os.listdir(d1)) != [kept, last]:
+            raise AssertionError(f"train: checkpoints {os.listdir(d1)}")
+        shutil.rmtree(os.path.join(d1, last))
+        shutil.copytree(d1, d2)
+        # the restored {"p", "o"} against the bytes run 1 saved
+        with open(os.path.join(d1, kept, "manifest.json")) as f:
+            names = json.load(f)["names"]
+        t = time.perf_counter()
+        got_p, got_o, s = train_driver.restore(
+            CheckpointManager(d2), full["params"], full["opt"], dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        got = packing.tree_leaves({"o": got_o, "p": got_p})
+        with np.load(os.path.join(d1, kept, "payload.npz")) as saved:
+            if s != resume_at or len(got) != len(names):
+                raise AssertionError(f"train: restored step {s}")
+            for i, (name, leaf) in enumerate(zip(names, got)):
+                want = saved[f"a{i}"]
+                host = leaf.cpu().numpy()
+                if host.dtype != want.dtype or \
+                        host.tobytes() != want.tobytes():
+                    raise AssertionError(f"train: restored {name} differs "
+                                         "from the saved bytes")
+        del got_p, got_o, got
+        shutil.rmtree(d1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tee = Tee()
+        t = time.perf_counter()
+        with obs_spans(spans2), contextlib.redirect_stdout(tee):
+            resumed = train_driver.main(argv + ["--ckpt-dir", d2])
+        resumed_s = time.perf_counter() - t
+        peak2 = torch.cuda.max_memory_allocated() / 2 ** 30
+    printed = "".join(tee.lines).splitlines()
+    if printed[0] != f"resumed from step {resume_at}" or \
+            resumed["start"] != resume_at + 1:
+        raise AssertionError(f"train: the second run began with "
+                             f"{printed[0]!r}")
+    steps_after = list(range(resume_at + 1, TRAIN_STEPS))
+    if sorted(resumed["losses"]) != steps_after:
+        raise AssertionError(f"train: resumed steps {resumed['losses']}")
+    for i in steps_after:
+        if not torch.equal(resumed["losses"][i], full["losses"][i]):
+            raise AssertionError(
+                f"train: step {i}'s resumed loss "
+                f"{float(resumed['losses'][i])!r} != the uninterrupted "
+                f"run's {float(full['losses'][i])!r}")
+    state = lambda run: packing.tree_leaves({"o": run["opt"],
+                                             "p": run["params"]})
+    for i, (a, b) in enumerate(zip(state(resumed), state(full))):
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"train: final state leaf {i} differs from the "
+                f"uninterrupted run's by {float((a - b).abs().max()):.3e}")
+    tokens = MODEL_BATCH * MODEL_SEQ
+    step_s = {}
+    for what, run, spans in (("run 1", full, spans1),
+                             ("run 2", resumed, spans2)):
+        step_s = {a["step"]: sec for name, a, sec in spans
+                  if name == "train.step"}
+        if sorted(step_s) != sorted(run["losses"]):
+            raise AssertionError(f"train {what}: step spans {step_s}")
+        log(f"train {what}: " + "; ".join(
+            f"step {i} loss {float(run['losses'][i]):.6f} "
+            f"{step_s[i]:.3f} s ({tokens / step_s[i]:.0f} tokens/s)"
+            for i in sorted(step_s)))
+        log(f"train {what}: checkpoint saves " + ", ".join(
+            f"step {a['step']} {sec:.3f} s" for name, a, sec in spans
+            if name == "train.checkpoint"))
+    driver_restore_s = next(sec for name, _, sec in spans2
+                            if name == "train.restore")
+    log(f"train: run 1 {full_s:.3f} s (peak {peak1:.2f} GiB), restore "
+        f"check {restore_s:.3f} s, run 2 {resumed_s:.3f} s (its restore "
+        f"{driver_restore_s:.3f} s, peak {peak2:.2f} GiB); resumed losses "
+        "and final parameters and moments bit-equal")
+    return {"start": resumed["start"], "resumed_step_s": step_s,
+            "peak_gib": max(peak1, peak2), "restore_s": restore_s}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2346,7 +2722,11 @@ def main():
     with traced("wire"):
         by_path["wire"] = wire_round(args.seed, state)
     checkpoint_step(state)
-    del state["wire_plain"], state["ledger"]
+    # phase 10's reference: phase 4's blobs and aggregate, kept on the host
+    serve_ref = {"plain": state.pop("wire_plain").cpu(),
+                 "scale": state["wire_scale"],
+                 "up_bytes": state.pop("ledger").total(budget.UPLINK),
+                 "blob_bytes": len(state["blobs"][0])}
     torch.cuda.empty_cache()
     with traced("transcipher"):
         by_path["transcipher"], tc_out = transcipher_round(args.seed, state)
@@ -2358,6 +2738,8 @@ def main():
     check_launches("sharded", by_path["sharded"])
     check_sharded(args.seed, state, sh_out)
     del sh_out
+    serve_ref.update(blobs=state["blobs"],
+                     ct=state["wire_aggregate"].cpu())
     state = {k: state[k] for k in ("ctx", "sk", "agg", "model", "expect",
                                    "aggregate")}
     torch.cuda.empty_cache()
@@ -2399,6 +2781,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     hyb = hybrid_gradients(args.seed, HYBRID_ARCH, dev, HYBRID_PARAMS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = serve_phase(args.seed, serve_ref, by_path)
+    del serve_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    trn = train_phase(dev)
+    by_path["train"] = launches()   # training launches no HE kernel
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
@@ -2452,6 +2842,26 @@ def main():
         f"{ssm['err']:.3e}, decode error {ssm_decode:.3e}; {HYBRID_ARCH}: "
         f"loss {hyb['loss']:.4f}, loss+grad {hyb['grad_s']:.3f} s, peak "
         f"{hyb['peak_gib']:.2f} GiB, decode error {hyb['decode_err']:.3e})")
+    sv = srv["stats"]
+    log(f"aggregation service (phase 4's {N_CLIENTS} blobs): fault and "
+        f"refold {sv['serve_fault']['wall_ms'] / 1e3:.3f} s (busy share "
+        f"{sv['serve_fault']['busy_share']:.4f}, peak "
+        f"{sv['serve_fault']['peak_gib']:.2f} GiB); crash "
+        f"{sv['serve_crash']['wall_ms'] / 1e3:.3f} s (busy share "
+        f"{sv['serve_crash']['busy_share']:.4f}); resume "
+        f"{sv['serve_resume']['wall_ms'] / 1e3:.3f} s (its restore "
+        f"{srv['resume_s']:.3f} s, busy share "
+        f"{sv['serve_resume']['busy_share']:.4f}); checkpoint saves "
+        + ", ".join(f"{lab} {sec:.3f} s" for lab, sec in srv["saves"])
+        + f"; both aggregates == phase 4's bit for bit, ledger {srv['up']} "
+        f"uplink bytes")
+    ts = trn["resumed_step_s"]
+    log(f"training driver ({MODEL_ARCH}, {TRAIN_STEPS} steps of "
+        f"{MODEL_BATCH * MODEL_SEQ} tokens, resumed at step "
+        f"{trn['start']}): resumed steps "
+        + ", ".join(f"{ts[i] * 1e3:.1f}" for i in sorted(ts))
+        + f" ms, losses and final parameters and moments bit-equal, peak "
+        f"{trn['peak_gib']:.2f} GiB")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

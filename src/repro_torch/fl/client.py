@@ -13,7 +13,6 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import models, obs
 from repro_torch.core import packing, sensitivity
@@ -226,10 +225,13 @@ class FLClient:
     # -- privacy sensitivity (paper §2.4 Step 1) ------------------------------
 
     def _soft_labels(self, batch: dict):
-        """(features, one-hot float32 labels) of a batch."""
+        """(features, one-hot float32 labels) of a batch.  A label < 0 or
+        >= vocab (an ignored position) gets a zero row, as jax.nn.one_hot
+        gives it."""
         label_key = "labels" if "labels" in batch else "targets"
-        y_soft = F.one_hot(batch[label_key].long(),
-                           self.model.cfg.vocab).float()
+        labels = batch[label_key]
+        y_soft = (labels[..., None] == torch.arange(
+            self.model.cfg.vocab, device=labels.device)).float()
         return {k: v for k, v in batch.items() if k != label_key}, y_soft
 
     def sensitivity_map(self, params, gen: torch.Generator | None = None):

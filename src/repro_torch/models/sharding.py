@@ -158,3 +158,15 @@ def kv_cache_spec(ax: AxisEnv, batch_size: int) -> tuple:
     dp = ax.dp if batch_size % ax.data_size == 0 else None
     mp = ax.model if ax.model_size > 1 else None
     return spec(dp, mp, None, None)
+
+
+def ssm_state_spec(ax: AxisEnv, batch_size: int, n_heads: int) -> tuple:
+    """[B, nh, hd, state]: batch over dp, heads over model."""
+    dp = ax.dp if (batch_size % ax.data_size == 0 and batch_size > 1) else None
+    return spec(dp, ax.mp(n_heads), None, None)
+
+
+def conv_state_spec(ax: AxisEnv, batch_size: int, ch: int) -> tuple:
+    """[B, w-1, ch]."""
+    dp = ax.dp if (batch_size % ax.data_size == 0 and batch_size > 1) else None
+    return spec(dp, None, ax.mp(ch))

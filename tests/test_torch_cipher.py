@@ -25,6 +25,7 @@ from repro.kernels import ref as jref
 from repro_torch import interop
 from repro_torch.core.ckks import cipher as tcipher
 from repro_torch.core.ckks import params as tparams
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NS = (256, 1024)
 SIGMA = 3.2

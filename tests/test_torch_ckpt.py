@@ -26,6 +26,7 @@ from repro_torch.core.secure_agg import (AggregatorConfig,
                                          SelectiveHEAggregator)
 from repro_torch.wire import compress as tcomp
 from repro_torch.wire import stream as tstream
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def tree(seed=0):

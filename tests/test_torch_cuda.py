@@ -22,6 +22,7 @@ from repro_torch.launch import fl_step, mesh as tmesh
 from repro_torch.wire import compress, stream
 
 from _flat_tables import FlatTables
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

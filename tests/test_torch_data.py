@@ -6,6 +6,7 @@ import pytest
 from repro.data import synthetic as jsyn
 
 from repro_torch.data import synthetic as tsyn
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("alpha,seed", [(0.5, 0), (0.1, 7)])

@@ -16,6 +16,7 @@ from repro.core import selection as jsel
 
 from repro_torch.core import dp as tdp
 from repro_torch.core import selection as tsel
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-12
 

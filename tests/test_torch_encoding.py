@@ -23,6 +23,7 @@ from repro.core.ckks import params as jparams
 from repro_torch import interop
 from repro_torch.core.ckks import encoding as tenc
 from repro_torch.core.ckks import params as tparams
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NS = (256, 1024)
 # measured on these inputs at delta=2^20: 0.49% (N=256) and 0.26%

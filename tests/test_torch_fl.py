@@ -347,6 +347,49 @@ def test_sensitivity_map_from_jax_probes_matches_jax(arch, monkeypatch):
     assert a.shape == tmap.shape and bool(torch.isfinite(a).all())
 
 
+class _OneBatch:
+    """A stream that yields copies of one fixed batch."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def next_batch(self):
+        return {k: v.copy() for k, v in self.batch.items()}
+
+
+def test_sensitivity_map_with_ignored_labels_matches_jax(monkeypatch):
+    """A label < 0 (an ignored position of both losses) or >= vocab gets a
+    zero one-hot row in both packages: the maps agree, where the port's
+    soft labels once raised."""
+    real = jsens.sensitivity_jvp
+    monkeypatch.setattr(jsens, "sensitivity_jvp", lambda fn, p, x, y, k, n_probes: _jit_call(
+        lambda p_, x_, y_, k_: real(fn, p_, x_, y_, k_, n_probes=n_probes),
+        p, x, y, k))
+    jm, jp = _jax_init("tiny")
+    vocab = jm.cfg.vocab
+    batch = jstreams(1, vocab, seq_len=8, batch_size=2, seed=5)[0] \
+        .next_batch()
+    batch["labels"][:, 2] = -1
+    batch["labels"][:, 5] = vocab
+    jc = jclient.FLClient(0, jm, _OneBatch(batch),
+                          jclient.ClientConfig(sensitivity_probes=2))
+    jmap = jc.sensitivity_map(jax.tree_util.tree_map(jnp.asarray, jp))
+    assert np.isfinite(jmap).all()
+    tc = FLClient(0, _torch_model("tiny"), _OneBatch(batch),
+                  ClientConfig(sensitivity_probes=2))
+    y = jax.nn.one_hot(jnp.asarray(batch["labels"]), vocab,
+                       dtype=jnp.float32)
+    assert not np.asarray(y)[:, 2].any() and not np.asarray(y)[:, 5].any()
+    params = interop.params_from_np(jp, "cpu")
+    tmap = tc.sensitivity_map_from_probes(
+        params, {k: torch.from_numpy(v) for k, v in batch.items()},
+        _jax_probes(jax.random.PRNGKey(0), y, 2))
+    np.testing.assert_allclose(tmap.numpy(), jmap, rtol=RTOL_MAP,
+                               atol=ATOL_OF_MAX * np.abs(jmap).max())
+    a = tc.sensitivity_map(params)
+    assert a.shape == tmap.shape and bool(torch.isfinite(a).all())
+
+
 @pytest.fixture(scope="module")
 def port_round():
     """A port aggregator over the tiny model (its own keys), the local

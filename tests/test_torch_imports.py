@@ -17,6 +17,8 @@ from repro_torch.core import selection as tselection
 from repro_torch.core.ckks import params as tparams
 from repro_torch.fl import KeyAuthority, ThresholdKeyAuthority
 
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _CHECK = """
@@ -55,6 +57,23 @@ def test_model_modules_import_no_jax_and_no_reference_package():
                "repro_torch.models.sharding, repro_torch.configs, "
                "repro_torch.optim, repro_torch.data, "
                "repro_torch.core.sensitivity, repro_torch.interop")
+
+
+def test_serve_and_launch_modules_import_no_jax_and_no_reference_package():
+    _run_clean("import repro_torch.serve, repro_torch.serve.faults, "
+               "repro_torch.serve.sim, repro_torch.serve.service, "
+               "repro_torch.launch.serve, repro_torch.launch.steps, "
+               "repro_torch.launch.train")
+
+
+def test_drivers_need_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the guard cannot trip")
+    from repro_torch.launch import serve as tserve, train as ttrain
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--clients", "2", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--steps", "1"])
 
 
 def test_chip_smoke_imports_no_jax_and_no_reference_package():

@@ -37,6 +37,7 @@ from repro_torch.kernels import (build, he_agg, lift, ntt, ops, pointwise,
                                  ref)
 
 import gold
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NS = (256, 1024)
 CSRC = pathlib.Path(build.__file__).parent / "csrc"

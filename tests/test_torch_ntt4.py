@@ -33,6 +33,7 @@ from repro_torch.core.ckks import params as tparams
 from repro_torch.kernels import build, ntt, ops, ref
 
 from _flat_tables import FlatTables
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CSRC = pathlib.Path(build.__file__).parent / "csrc"
 

@@ -36,6 +36,7 @@ from repro_torch.wire import budget, compress as wc, stream as ws
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import round_report  # noqa: E402  (tools/ has no package)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CTX = params.make_test_context(n_poly=256, n_limbs=2, delta_bits=20,
                                device="cpu")

@@ -23,6 +23,7 @@ from repro import optim as joptim
 from repro_torch import interop
 from repro_torch import optim as toptim
 from repro_torch.core import packing as tpacking
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-6, 1e-8
 

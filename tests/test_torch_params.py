@@ -11,6 +11,7 @@ from repro.core.ckks import params as jparams
 from repro_torch.core.ckks import params as tparams
 
 import gold
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SPECS = [dict(n_poly=8192, n_limbs=2, delta_bits=26)] + [
     dict(spec) for _, spec in sorted(gold.KAT_CONTEXTS.items())]

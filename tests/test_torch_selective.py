@@ -25,6 +25,7 @@ from repro_torch.core import secure_agg as tsecure_agg
 from repro_torch.core import selection as tselection
 from repro_torch.core.ckks import cipher as tcipher
 from repro_torch.core.ckks import params as tparams
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # recovered parameters: float32 FFT rounding of the decode (measured 4.8e-7)
 DECODE_ATOL = 1e-5

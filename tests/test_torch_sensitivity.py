@@ -30,6 +30,7 @@ from repro_torch.core import packing as tpacking
 from repro_torch.core import sensitivity as tsens
 from repro_torch.models import CPU_ENV
 from repro_torch.models import transformer as ttransformer
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL_OF_MAX = 1e-5, 1e-6
 FAST_COMPILE = {"xla_backend_optimization_level": 0,

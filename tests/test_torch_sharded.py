@@ -42,6 +42,7 @@ from repro_torch.core.secure_agg import (AggregatorConfig, ProtectedUpdate,
 from repro_torch.kernels import ops
 from repro_torch.launch import fl_step, mesh
 from repro_torch.wire import compress, stream
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, B = 256, 5
 CPU = torch.device("cpu")

@@ -37,6 +37,7 @@ from repro_torch.wire import format as twf
 from repro_torch.wire import stream as tstream
 
 import gold
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_CHUNKS = 3
 N_PLAIN = 200

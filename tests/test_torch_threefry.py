@@ -23,6 +23,7 @@ from repro_torch.core.ckks import params as tparams
 from repro_torch.core.ckks import threefry
 
 import gold
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LAYOUTS = (True, False)
 SEEDS = (0, 77, 2 ** 31 + 5, 2 ** 40 + 3)

@@ -27,6 +27,7 @@ from repro_torch.core.ckks import params as tparams
 from repro_torch.core.ckks import threshold as tthr
 from repro_torch.fl import KeyAuthority, ThresholdKeyAuthority
 from repro_torch.kernels import ops as tops
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 256
 N_PARTIES = 3

@@ -37,6 +37,7 @@ from repro_torch.core.secure_agg import (AggregatorConfig,
 from repro_torch.wire import compress as twc
 from repro_torch.wire import format as twf
 from repro_torch.wire import stream as tws
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, L, DELTA_BITS = 256, 2, 20
 DERIVES = (jcipher.DERIVE_FOLD_CHUNK, jcipher.DERIVE_CTR)

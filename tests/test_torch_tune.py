@@ -25,6 +25,7 @@ from repro_torch.core.ckks import cipher, params, sharded
 from repro_torch.core.secure_agg import AggregatorConfig, SelectiveHEAggregator
 from repro_torch.kernels import ntt, ops, ref, tune
 from repro_torch.launch import mesh
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

@@ -37,6 +37,7 @@ from repro_torch.wire import budget as tbudget
 from repro_torch.wire import compress as tcomp
 from repro_torch.wire import format as twf
 from repro_torch.wire import stream as tstream
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CODECS = ("f32", "f16", "i8")
