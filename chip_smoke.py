@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
 
-Phases 1-11 and six steps between them (2b, 3b, 4b, 8b, 9b, 9c); any failure
+Phases 1-12 and six steps between them (2b, 3b, 4b, 8b, 9b, 9c); any failure
 exits non-zero, and without CUDA the script exits non-zero before doing
 anything:
 
@@ -158,7 +158,24 @@ anything:
    step 2", steps 3-5).  The restored {"p", "o"} must equal the saved
    bytes, and the resumed losses and final {"p", "o"} the uninterrupted
    run's, bit for bit.  Each step's time and tokens/s, each save's and the
-   restore's time (the driver's train.* spans) and the peak are printed.
+   restore's time (the driver's train.* spans) and the peak are printed;
+12. the multi-card remainder on the one card: (a) make_production_mesh()
+   raises RuntimeError with its counts (256 ranks needed, 0 and then 1
+   present; 512 for the two-pod mesh); (b) a one-rank NCCL group and a
+   (1, 1) ("data", "model") make_model_mesh on the card: full-width
+   Qwen1.5-0.5B (fresh seeded weights, B = 2 x S = 256 batches) through
+   launch.steps.jit_train_step for PLACED_STEPS steps, jit_prefill_step
+   and jit_decode_step (every op a DTensor op), each held bit for bit
+   against make_train_step / make_prefill_step / make_decode_step run
+   unplaced on the same inputs (loss, metrics, every parameter and both
+   moments; logits and every cache buffer); step times, peak memory and
+   the replicate-before sites are printed and the group destroyed; (c) in
+   a subprocess, `python -m repro_torch.launch.dryrun` for Qwen1.5-0.5B
+   train_4k on both production meshes (fake ranks, meta tensors) and
+   --he-agg on the single pod; each artifact's per-rank parameter and
+   optimiser bytes must equal the spec arithmetic, and its memory and
+   collective lines are printed.  No HE kernel runs in this phase: its
+   launch counts must be 0.
 
 Phases 3, 3b, 4, 5, 6, 7 and 8, each stage and round of phase 9, step
 9b and the three runs of phase 10 run with the launch counters set to 0
@@ -176,8 +193,8 @@ fold with one accumulate launch per client and hold at most one update's
 transcipher round.
 
 The last lines are the threshold round's, the model round's, the FL
-loop's, steps 9b/9c's, the service's and the training driver's
-summaries, the card's name and power limit
+loop's, steps 9b/9c's, the service's, the training driver's and the placed
+steps' summaries, the card's name and power limit
 (nvidia-smi), one JSON line with every kernel's numbers, and the JSON
 result line.
 """
@@ -213,13 +230,14 @@ from repro_torch.kernels import (  # noqa: E402
 from repro_torch.fl import (  # noqa: E402
     ClientConfig, FLClient, FLRunConfig, FLTask, ThresholdKeyAuthority)
 from repro_torch.launch import fl_step, mesh as he_mesh  # noqa: E402
+from repro_torch.launch import steps as model_steps  # noqa: E402
 from repro_torch.launch import train as train_driver  # noqa: E402
 from repro_torch.serve import faults as serve_faults  # noqa: E402
 from repro_torch.serve import sim as serve_sim  # noqa: E402
 from repro_torch.wire import budget, compress, format as wf  # noqa: E402
 from repro_torch.wire import stream  # noqa: E402
 from repro_torch.data import make_client_streams  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import sharding, transformer  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     AdamWConfig, adamw_init, adamw_update)
 
@@ -2679,6 +2697,230 @@ def train_phase(dev):
             "peak_gib": max(peak1, peak2), "restore_s": restore_s}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the placed steps on a one-rank mesh, and the dry-run
+# ---------------------------------------------------------------------------
+
+PLACED_STEPS = 2
+DRYRUN_CELLS = (("--arch", MODEL_ARCH, "--shape", "train_4k", "--mesh",
+                 "both"),
+                ("--he-agg", "--mesh", "single"))
+MESH_AXIS_SIZES = {"single": {"data": 16, "model": 16},
+                   "multi": {"pod": 2, "data": 16, "model": 16}}
+
+
+def bit_equal(what, got, want):
+    """Every leaf of got (a DTensor's local value on the one-rank mesh)
+    equals want's, dtype, shape and bits."""
+    g, w = packing.tree_leaves(got), packing.tree_leaves(want)
+    if len(g) != len(w):
+        raise AssertionError(f"{what}: {len(g)} leaves, not {len(w)}")
+    for i, (a, b) in enumerate(zip(g, w)):
+        a = a.to_local() if hasattr(a, "to_local") else a
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            err = float((a.float() - b.float()).abs().max()) \
+                if a.shape == b.shape else float("nan")
+            raise AssertionError(f"{what}: leaf {i} {tuple(b.shape)} "
+                                 f"differs by {err:.3e}")
+
+
+def production_mesh_error(multi_pod):
+    try:
+        he_mesh.make_production_mesh(multi_pod=multi_pod)
+    except RuntimeError as e:
+        return str(e)
+    raise AssertionError("make_production_mesh built a mesh on one card")
+
+
+def timed_steps(step, p, o, batches):
+    times, out = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, o, met = step(p, o, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        out.append(met)
+    return p, o, out, times
+
+
+def spec_bytes(tree, specs, sizes):
+    """Per-rank bytes of a nested dict of tensors placed by its specs (the
+    JAX package's spec arithmetic: each dim over the product of the sizes
+    its entry names)."""
+    total = 0
+    for leaf, spec in zip(leaves(tree), leaves(specs)):
+        n = 1
+        for i, size in enumerate(leaf.shape):
+            entry = spec[i] if i < len(spec) else None
+            axes = () if entry is None else (
+                entry if isinstance(entry, tuple) else (entry,))
+            n *= size // math.prod(sizes[a] for a in axes)
+        total += n * leaf.element_size()
+    return total
+
+
+def check_dryrun(out_dir):
+    """Run the dry-run cells in a subprocess; hold each model artifact's
+    per-rank parameter and optimiser bytes against the spec arithmetic."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src"))
+    for args in DRYRUN_CELLS:
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+             out_dir, "--force", *args], env=env, capture_output=True,
+            text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {' '.join(args)}: exit "
+                                 f"{proc.returncode}\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        for line in proc.stdout.splitlines():
+            if line.startswith(("OK", "done")):
+                log(f"dryrun: {line}")
+        log(f"dryrun {' '.join(args)}: {time.perf_counter() - t:.1f} s")
+    cfg = configs.get_config(MODEL_ARCH)
+    p_abs = transformer.init_abstract(cfg)
+    for mesh_name, sizes in MESH_AXIS_SIZES.items():
+        with open(os.path.join(out_dir, f"{MODEL_ARCH}_train_4k_"
+                                        f"{mesh_name}.json")) as f:
+            art = json.load(f)
+        data = tuple(a for a in ("pod", "data") if a in sizes)
+        ax = sharding.AxisEnv(data=data, data_size=math.prod(
+            sizes[a] for a in data), model_size=sizes["model"])
+        pspecs = sharding.param_specs(p_abs, ax)
+        want_p = spec_bytes(p_abs, pspecs, sizes)
+        f32 = lambda t: torch.empty(t.shape, dtype=torch.float32,
+                                    device="meta")
+        want_o = 2 * spec_bytes(packing.tree_map(f32, p_abs), pspecs,
+                                sizes) + 4
+        mem, by = art["memory"], art["memory"]["argument_bytes_by_input"]
+        if (by["params"], by["opt"]) != (want_p, want_o) or \
+                art["n_devices"] != math.prod(sizes.values()):
+            raise AssertionError(
+                f"dryrun {mesh_name}: params {by['params']} / opt "
+                f"{by['opt']} bytes a rank, spec arithmetic {want_p} / "
+                f"{want_o}")
+        colls = art["collectives"]
+        log(f"dryrun {MODEL_ARCH} train_4k {mesh_name} "
+            f"({art['n_devices']} fake ranks): per rank params {want_p} B, "
+            f"opt {want_o} B, batch {by['batch']} B (argument "
+            f"{mem['argument_bytes']} B), output {mem['output_bytes']} B, "
+            f"peak live {mem['peak_hbm_bytes']} B; collectives "
+            f"{json.dumps(colls['counts'])}, bytes "
+            f"{json.dumps(colls['by_op_bytes'])}; roofline (H100 peaks) "
+            f"compute {art['roofline']['compute_s'] * 1e3:.1f} ms, memory "
+            f"{art['roofline']['memory_s'] * 1e3:.1f} ms, collective "
+            f"{art['roofline']['collective_s'] * 1e3:.1f} ms")
+    with open(os.path.join(out_dir, f"{MODEL_ARCH}_he_agg_single.json")) \
+            as f:
+        he = json.load(f)["he"]
+    log(f"dryrun he_agg single: {he['n_chunks']} ciphertexts and "
+        f"{he['n_plain']} plain values a client, "
+        f"{he['wire_bytes_per_client']} wire bytes a client, slot grid "
+        f"{he['slot_grid']}, slot in/out bytes {max(he['slot_in_bytes'])}"
+        f" / {max(he['slot_out_bytes'])}, launches a block "
+        f"{he['launches_per_block']}")
+
+
+def placed_phase(seed, dev):
+    """Phase 12; returns its numbers."""
+    import torch.distributed as dist
+    out = {}
+    msg = production_mesh_error(False)
+    if "mesh (16, 16) needs 256 ranks but only 0 exist" not in msg:
+        raise AssertionError(f"make_production_mesh: {msg!r}")
+    log(f"placed: make_production_mesh() without a group: {msg}")
+    ops.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            for multi, want in ((False, "mesh (16, 16) needs 256 ranks but "
+                                        "only 1 exist"),
+                                (True, "mesh (2, 16, 16) needs 512 ranks "
+                                       "but only 1 exist")):
+                msg = production_mesh_error(multi)
+                if want not in msg:
+                    raise AssertionError(f"make_production_mesh: {msg!r}")
+            mesh = he_mesh.make_model_mesh((1, 1), ("data", "model"))
+            out.update(placed_steps(seed, dev, mesh))
+        finally:
+            dist.destroy_process_group()
+        check_launches("placed", ops.launch_counts(), launches())
+        t = time.perf_counter()
+        check_dryrun(os.path.join(d, "dryrun"))
+        out["dryrun_s"] = time.perf_counter() - t
+    return out
+
+
+def placed_steps(seed, dev, mesh):
+    """Phase 12(b): the jit_* steps on the (1, 1) mesh against the same
+    steps unplaced."""
+    cfg = configs.get_config(MODEL_ARCH)
+    plain = models.build_model(cfg, device=dev)
+    placed = models.build_model(cfg, sharding.axis_env_from_mesh(mesh),
+                                device=dev)
+    p0 = plain.init(torch.Generator(device=dev).manual_seed(seed))
+    o0 = adamw_init(p0)
+    stream = make_client_streams(1, cfg.vocab, seq_len=MODEL_SEQ,
+                                 batch_size=MODEL_BATCH, seed=seed)[0]
+    batches = [on_device(stream.next_batch(), dev)
+               for _ in range(PLACED_STEPS)]
+    opt_cfg = AdamWConfig()
+    want_p, want_o, want_m, plain_s = timed_steps(
+        model_steps.make_train_step(plain, opt_cfg), p0, o0, batches)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    got_p, got_o, got_m, placed_s = timed_steps(
+        model_steps.jit_train_step(placed, mesh, opt_cfg, batches[0]), p0,
+        o0, batches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, (g, w) in enumerate(zip(got_m, want_m)):
+        bit_equal(f"placed step {i} metrics", g, w)
+    bit_equal("placed parameters", got_p, want_p)
+    bit_equal("placed moments", got_o, want_o)
+    del got_p, got_o, want_p, want_o
+    torch.cuda.empty_cache()
+    prompt = {"tokens": batches[0]["tokens"]}
+    with torch.no_grad():
+        t = time.perf_counter()
+        want = model_steps.make_prefill_step(plain)(p0, prompt)
+        torch.cuda.synchronize()
+        pre_plain_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got = model_steps.jit_prefill_step(placed, mesh, prompt)(p0, prompt)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t
+        bit_equal("placed prefill", got, want)
+        _, cache = plain.prefill(p0, prompt, cache_len=MODEL_SEQ + 1)
+        tok = {"tokens": batches[0]["tokens"][:, -1]}
+        t = time.perf_counter()
+        want = model_steps.make_decode_step(plain)(p0, cache, tok)
+        torch.cuda.synchronize()
+        dec_plain_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got = model_steps.jit_decode_step(placed, mesh, cache, tok,
+                                          MODEL_BATCH)(p0, cache, tok)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t
+        bit_equal("placed decode", got, want)
+    tokens = MODEL_BATCH * MODEL_SEQ
+    log(f"placed ({MODEL_ARCH} on a (1, 1) NCCL mesh, {tokens} tokens a "
+        f"step): jit_train_step "
+        + ", ".join(f"{s * 1e3:.1f}" for s in placed_s)
+        + " ms (unplaced " + ", ".join(f"{s * 1e3:.1f}" for s in plain_s)
+        + f" ms), loss {float(want_m[-1]['loss']):.6f}; prefill "
+        f"{pre_s * 1e3:.1f} ms (unplaced {pre_plain_s * 1e3:.1f}), decode "
+        f"{dec_s * 1e3:.1f} ms (unplaced {dec_plain_s * 1e3:.1f}); peak "
+        f"{peak:.2f} GiB; losses, parameters, moments, logits and caches "
+        "bit-equal to the unplaced steps")
+    log("placed: replicate-before sites: "
+        + "; ".join(sharding.REPLICATE_BEFORE))
+    return {"steps_s": placed_s, "plain_s": plain_s, "prefill_s": pre_s,
+            "decode_s": dec_s, "peak_gib": peak}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2789,6 +3031,12 @@ def main():
     torch.cuda.empty_cache()
     trn = train_phase(dev)
     by_path["train"] = launches()   # training launches no HE kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    plc = placed_phase(args.seed, dev)
+    plc["s"] = time.perf_counter() - t
+    by_path["placed"] = launches()  # counted in placed_phase: none
     for name, row in rows.items():
         row["launches"] = sum(c[name] for c in by_path.values())
         row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
@@ -2862,6 +3110,14 @@ def main():
         + ", ".join(f"{ts[i] * 1e3:.1f}" for i in sorted(ts))
         + f" ms, losses and final parameters and moments bit-equal, peak "
         f"{trn['peak_gib']:.2f} GiB")
+    log(f"placed steps ({MODEL_ARCH}, (1, 1) mesh): jit_train_step "
+        + ", ".join(f"{x * 1e3:.1f}" for x in plc["steps_s"])
+        + " ms against unplaced "
+        + ", ".join(f"{x * 1e3:.1f}" for x in plc["plain_s"])
+        + f" ms, prefill {plc['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{plc['decode_s'] * 1e3:.1f} ms, peak {plc['peak_gib']:.2f} GiB, "
+        f"all bit-equal; dry-run {plc['dryrun_s']:.1f} s; phase 12 "
+        f"{plc['s']:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)

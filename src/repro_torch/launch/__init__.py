@@ -1,2 +1,4 @@
-"""Device meshes and the distributed aggregation step of the sharded HE
-engine."""
+"""Device meshes (model meshes over torch.distributed and the sharded HE
+engine's), the train/prefill/decode steps and their placed `jit_*` forms,
+the distributed aggregation step, the drivers, and the multi-pod
+dry-run."""

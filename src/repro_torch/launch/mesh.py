@@ -1,15 +1,26 @@
-"""Device meshes for the sharded HE engine (DESIGN.md §8).
+"""Device meshes: the model meshes of `torch.distributed` and the sharded
+HE engine's mesh (DESIGN.md §8).
 
-A mesh is a `[data][model]` grid of `torch.device`s that one process
-drives: ciphertext chunks are cut along `data`, RNS limbs along `model`.  A
-device may stand in more than one slot, so a mesh that repeats the CPU, or
-one card, still cuts every tensor into its real blocks; on a host with more
-cards the same mesh puts one block on each.  `make_production_mesh` (a pod
-of 256 TPU chips in the JAX package) is not ported.
+Model meshes are `torch.distributed.device_mesh.DeviceMesh`es with the JAX
+package's axis names, one rank per device: `make_production_mesh` is the
+(16, 16) ("data", "model") pod of 256 ranks or the (2, 16, 16) ("pod",
+"data", "model") pair of pods of 512, and `make_model_mesh` any other
+shape.  They need a `torch.distributed` world of at least that many ranks
+(`torchrun --nproc-per-node ...`, or the fake backend of
+`launch/dryrun.py`, which plays JAX's placeholder host devices).  The
+device type is CUDA unless the caller names another: a gloo or fake world
+has no card, so tests and the dry-run pass "cpu".
+
+An HE mesh (`HeMesh`) is a `[data][model]` grid of `torch.device`s that
+one process drives: ciphertext chunks are cut along `data`, RNS limbs
+along `model`.  A device may stand in more than one slot, so a mesh that
+repeats the CPU, or one card, still cuts every tensor into its real
+blocks; on a host with more cards the same mesh puts one block on each.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -65,6 +76,36 @@ class HeMesh:
         over every slot, limbs whole (the chunk-only regime of
         launch.fl_step)."""
         return HeMesh(tuple((dev,) for row in self.devices for dev in row))
+
+
+def make_model_mesh(shape, axes, device_type: str = "cuda"):
+    """A `DeviceMesh` of `shape` named `axes` over the first prod(shape)
+    ranks of the default process group (JAX's `_make_mesh`).  Raises
+    RuntimeError, with the counts, when the world is smaller or not
+    initialised."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    n = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 0
+    if have < n:
+        raise RuntimeError(
+            f"mesh {shape} needs {n} ranks but only {have} exist"
+            + ("" if have else " (torch.distributed is not initialised)")
+            + f".  Start one rank a device with `torchrun --nproc-per-node "
+            f"...` (a world of {n}), or, for a dry-run without devices, "
+            "initialise torch.distributed with the fake backend as "
+            "repro_torch.launch.dryrun does.")
+    mesh = torch.arange(n).reshape(shape)
+    return DeviceMesh(device_type, mesh, mesh_dim_names=axes)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """16x16 single pod (256 ranks) or 2x16x16 two-pod (512 ranks)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_model_mesh(shape, axes, device_type)
 
 
 def _default_devices() -> list[torch.device]:

@@ -1,16 +1,28 @@
-"""Train, prefill and decode steps and input/cache sharding specs (the
-JAX package's `repro.launch.steps`, used by train.py).
+"""Train, prefill and decode steps, input/cache sharding specs, and the
+steps placed on a `DeviceMesh` (the JAX package's `repro.launch.steps`,
+used by train.py and launch/dryrun.py).
 
 The steps are plain functions on trees of tensors: the train step is
 `models.value_and_grad(model.loss_fn)`, then `cosine_lr` and
 `adamw_update`, and returns `{"loss", "grad_norm", "lr"}` as the
-reference's does; prefill and decode call the model.  The specs are
-metadata, as in `models/sharding.py`: plain tuples normalised like
-`PartitionSpec`, which on one card all collapse to replication.
+reference's does; prefill and decode call the model.  The specs are plain
+tuples normalised like `PartitionSpec` (`models/sharding.py`).
 
-`named` and the `jit_*` wrappers of the reference place each tree on a
-device mesh by these specs.  They wait for model sharding over several
-cards (ROADMAP Queue A item 6); nothing here moves a tensor.
+`named(mesh, specs)` is the tree of DTensor placements, the counterpart of
+a tree of `NamedSharding`s.  `jit_train_step`, `jit_prefill_step` and
+`jit_decode_step` are the reference's `jax.jit(..., in_shardings,
+out_shardings)`: each places its inputs by the in-specs (`distribute_tensor`,
+or `redistribute` for an input that is already a DTensor), runs the same
+step body under `implicit_replication` (a plain tensor the body makes,
+such as `torch.arange` positions, counts as replicated), and places the
+outputs by the out-specs; an out-spec of None (JAX's "the compiler
+chooses") keeps DTensor's placement and reduces a Partial one.  Every leaf
+that comes out is a DTensor on the mesh.  "jit" stays in the names only so
+that a reader finds the counterpart: nothing is compiled (no
+`torch.compile`), and donation has no counterpart, so the inputs stay
+valid.  On a two-pod mesh the steps compute on `sharding.spmd_mesh`, the
+same ranks with 'pod' and 'data' merged into one dim, which holds the same
+blocks (`step.mesh`).
 """
 from __future__ import annotations
 
@@ -67,6 +79,20 @@ def opt_specs(param_spec_tree):
     return {"m": param_spec_tree, "v": param_spec_tree, "step": shd.spec()}
 
 
+def _map_specs(fn, spec_tree):
+    """fn over the spec tuples (leaves) of a nested dict / list."""
+    if isinstance(spec_tree, dict):
+        return {k: _map_specs(fn, v) for k, v in spec_tree.items()}
+    if isinstance(spec_tree, list):
+        return [_map_specs(fn, v) for v in spec_tree]
+    return fn(spec_tree)
+
+
+def named(mesh, spec_tree):
+    """Spec tree -> the same tree of DTensor placement lists."""
+    return _map_specs(lambda s: shd.placements(s, mesh), spec_tree)
+
+
 # ---------------------------------------------------------------------------
 # steps
 # ---------------------------------------------------------------------------
@@ -97,3 +123,80 @@ def make_decode_step(model: Model):
     def decode_step(params, cache, batch):
         return model.decode_step(params, cache, batch)
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# steps placed on a DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def _settle(x, mesh):
+    """An output leaf under an out-spec of None: a plain tensor becomes a
+    replicated DTensor, a Partial placement is reduced."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return shd.reduce_partial(x)
+
+
+def _place_out(tree, spec_tree, mesh):
+    tree = _map_leaves(lambda x: _settle(x, mesh), tree)
+    return tree if spec_tree is None else shd.distribute(tree, spec_tree,
+                                                         mesh)
+
+
+def _map_leaves(fn, tree):
+    """fn over the tensors of a nested dict / list / tuple (None stays, as
+    the encoder's missing cache)."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _placed(fn, mesh, in_specs, out_specs):
+    """fn with its positional inputs placed by in_specs and its outputs by
+    out_specs (a tuple, one entry per output; None leaves the placement to
+    DTensor)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    mesh = shd.spmd_mesh(mesh)
+
+    def step(*args):
+        args = [shd.distribute(a, s, mesh) for a, s in zip(args, in_specs)]
+        with implicit_replication():
+            out = fn(*args)
+        return tuple(_place_out(o, s, mesh) for o, s in zip(out, out_specs))
+    step.in_specs, step.out_specs, step.mesh = in_specs, out_specs, mesh
+    return step
+
+
+def jit_train_step(model: Model, mesh, opt_cfg: AdamWConfig, batch_tree):
+    """The production train step placed on `mesh`: params and AdamW state
+    by the model's specs in and out, the batch over dp, the metrics
+    replicated."""
+    ax = model.ax
+    pspecs = model.param_specs()
+    ospecs = opt_specs(pspecs)
+    bspecs = batch_specs(batch_tree, ax)
+    return _placed(make_train_step(model, opt_cfg), mesh,
+                   (pspecs, ospecs, bspecs), (pspecs, ospecs, None))
+
+
+def jit_prefill_step(model: Model, mesh, batch_tree):
+    ax = model.ax
+    pspecs = model.param_specs()
+    bspecs = batch_specs(batch_tree, ax)
+    return _placed(make_prefill_step(model), mesh, (pspecs, bspecs),
+                   (None, None))
+
+
+def jit_decode_step(model: Model, mesh, cache_tree, batch_tree, batch: int,
+                    param_mode: str = "train"):
+    ax = model.ax
+    pspecs = model.param_specs(mode=param_mode)
+    cspecs = cache_specs(model.cfg, cache_tree, ax, batch)
+    bspecs = batch_specs(batch_tree, ax)
+    return _placed(make_decode_step(model), mesh, (pspecs, cspecs, bspecs),
+                   (None, cspecs))

@@ -2,7 +2,10 @@
 encoder: `transformer`; ssm: `mamba2`; hybrid: `zamba2`), the JAX
 package's `repro.models`.
 
-``build_model(cfg, ax, device)`` returns a ``Model``:
+``build_model(cfg, ax, device)`` returns a ``Model`` (``ax`` an
+``AxisEnv``; one from ``axis_env_from_mesh(mesh)`` carries a
+``DeviceMesh``, and the model's sharding constraints and ``local_map``
+paths then act on the DTensors that ``launch.steps.jit_*`` place on it):
   init(gen) -> params                    (real weights drawn from gen)
   init_abstract() -> params              (meta tensors; no allocation)
   loss_fn(params, batch) -> scalar
@@ -34,7 +37,9 @@ from repro_torch.core import packing
 from repro_torch.core.ckks.params import resolve_device
 from repro_torch.models import mamba2, transformer, zamba2
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.sharding import AxisEnv, CPU_ENV, param_specs
+from repro_torch.models import sharding
+from repro_torch.models.sharding import (
+    AxisEnv, CPU_ENV, axis_env_from_mesh, param_specs)
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "encoder")
 

@@ -95,7 +95,29 @@ def blocked_attention(q, k, v, cfg: ModelConfig, ax: sharding.AxisEnv,
     q: [B, Sq, H, hd]; k, v: [B, Sk, KH, hd].  Returns [B, Sq, H, hd].
     Python loop over query chunks of cfg.attn_chunk; for causal attention
     each chunk only reads k/v up to its last row.
+
+    On DTensors it runs per (batch, head) shard under `local_map`, on the
+    layout `attn_qkv` constrains q/k/v to: batch over dp, heads over
+    'model' when both H and KH divide by its size (else heads replicated,
+    so that every shard keeps whole GQA groups).  No value crosses a shard
+    in attention, and the shard bodies are the one-card code.
     """
+    if sharding.is_dtensor(q):
+        shard_heads = ax.mp(q.shape[2]) is not None and \
+            ax.mp(k.shape[2]) is not None
+        mp = ax.model if shard_heads else None
+        pl = sharding.placements((ax.dp, None, mp, None), q.device_mesh)
+        body = lambda q, k, v: _blocked_attention(q, k, v, cfg, causal,
+                                                  q_start)
+        return sharding.local_map(body, q.device_mesh, (pl, pl, pl),
+                                  pl)(q, k, v)
+    return _blocked_attention(*sharding.contiguous_grads(q, k, v), cfg,
+                              causal, q_start)
+
+
+def _blocked_attention(q, k, v, cfg: ModelConfig, causal: bool,
+                       q_start: int = 0):
+    """blocked_attention on plain tensors."""
     b, sq, h, hd = q.shape
     kh = k.shape[2]
     g = h // kh
@@ -123,6 +145,23 @@ def blocked_attention(q, k, v, cfg: ModelConfig, ax: sharding.AxisEnv,
     return out.reshape(b, sq, h, hd)
 
 
+def pad_seq(kv, cache_len: int):
+    """A prompt's k or v [B, S, KH, hd] as a cache of cache_len rows, the
+    tail zero (a new tensor, so DTensor propagates its placement; the JAX
+    package writes the prompt into a zero cache)."""
+    return F.pad(kv, (0, 0, 0, 0, 0, cache_len - kv.shape[1]))
+
+
+def cache_write(cache, new, pos):
+    """The cache [B, S, ...] with row `pos` (a 0-d int tensor) of dim 1
+    replaced by new [B, 1, ...]: a new tensor, the values copied exactly.
+    A select by mask rather than `index_copy`, which DTensor has no
+    sharding rule for on torch 2.11."""
+    rows = torch.arange(cache.shape[1], device=cache.device) == pos
+    return torch.where(rows.reshape(1, -1, *(1,) * (cache.dim() - 2)), new,
+                       cache)
+
+
 def decode_attention(q, k_cache, v_cache, pos):
     """Single-token attention against a cache.
 
@@ -133,7 +172,7 @@ def decode_attention(q, k_cache, v_cache, pos):
     kh = k_cache.shape[2]
     g = h // kh
     scale = 1.0 / math.sqrt(hd)
-    qg = q.reshape(b, kh, g, hd)
+    qg = sharding.whole_blocks(q, 1, kh).reshape(b, kh, g, hd)
     logits = torch.einsum("bkgd,bskd->bkgs", qg.float(),
                           k_cache.float()) * scale
     s = k_cache.shape[1]
@@ -186,12 +225,26 @@ def attn_qkv(p, i, x, cfg: ModelConfig, ax: sharding.AxisEnv, positions):
         q = q + p["bq"][i].to(x.dtype)
         k = k + p["bk"][i].to(x.dtype)
         v = v + p["bv"][i].to(x.dtype)
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = sharding.whole_blocks(q, -1, cfg.n_heads).reshape(b, s, cfg.n_heads,
+                                                          hd)
+    k = sharding.whole_blocks(k, -1, cfg.n_kv_heads).reshape(
+        b, s, cfg.n_kv_heads, hd)
+    v = sharding.whole_blocks(v, -1, cfg.n_kv_heads).reshape(
+        b, s, cfg.n_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = sharding.constrain(q, *_qspec(ax, cfg.n_heads))
+    k = sharding.constrain(k, *_kvspec(ax, cfg.n_kv_heads))
+    v = sharding.constrain(v, *_kvspec(ax, cfg.n_kv_heads))
     return q, k, v
+
+
+def _qspec(ax: sharding.AxisEnv, h):
+    return (ax.dp, None, ax.mp(h), None)
+
+
+def _kvspec(ax: sharding.AxisEnv, kh):
+    return (ax.dp, None, ax.mp(kh), None)
 
 
 def attn_out(p, i, o, x_dtype):
@@ -244,9 +297,15 @@ def init_embed(gen, cfg: ModelConfig, device):
 
 
 def embed_tokens(p, tokens, cfg: ModelConfig, dtype):
-    """Rows of the table in `dtype`: index first, then cast (the JAX
-    package casts the whole table first; the values are the same)."""
-    return p["embed"][tokens.long()].to(dtype)
+    """Rows of the table in `dtype`: look up first, then cast (the JAX
+    package casts the whole table first; the values are the same).
+    `F.embedding` rather than indexing: DTensor places its lookup on a
+    vocab-sharded table, and torch 2.11's DTensor fails the index's
+    backward on a batch-sharded index.  Its masked partial sum is reduced
+    at once: DTensor keeps one mask for it, so a second reduction of the
+    same tensor (rms_norm reads it twice) would find none."""
+    x = sharding.reduce_partial(F.embedding(tokens.long(), p["embed"]))
+    return x.to(dtype)
 
 
 def unembed_weight(p, cfg: ModelConfig):
@@ -269,8 +328,16 @@ def _xent_sums(logits, labels, vocab_real: int):
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
     labels = labels.long()
     valid = labels >= 0
-    label_logit = torch.gather(logits, -1,
-                               labels.clamp(min=0)[..., None])[..., 0]
+    idx = labels.clamp(min=0)[..., None]
+    if sharding.is_dtensor(logits):
+        # on a mesh the label logit is a sum over the vocab with one
+        # nonzero term, which is exact and gathers no vocab shard: DTensor
+        # may place a gather on vocab shards, and its masked-partial
+        # reduction fails on a [B, S, 1] index
+        vocab = torch.arange(v, device=logits.device)
+        label_logit = torch.where(vocab == idx, logits, 0.0).sum(-1)
+    else:
+        label_logit = torch.gather(logits, -1, idx)[..., 0]
     nll = (lse - label_logit) * valid
     return torch.sum(nll), torch.sum(valid)
 

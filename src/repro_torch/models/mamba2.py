@@ -181,7 +181,7 @@ def block(p, i, u, cfg: ModelConfig, ax):
         x, dtv, b_, c_ = (F.pad(t, (0, 0, 0, pad)) for t in (x, dtv, b_, c_))
     xh = x.reshape(bsz, s + pad, nh, hd)
     xh = sharding.constrain(xh, ax.dp, None, ax.mp(nh), None)
-    y, h_final = ssd_chunked(xh, dtv, a, b_, c_, cfg.ssm_chunk)
+    y, h_final = _ssd(xh, dtv, a, b_, c_, cfg, ax)
     if pad:
         y = y[:, :s]
         xh = xh[:, :s]
@@ -190,6 +190,24 @@ def block(p, i, u, cfg: ModelConfig, ax):
     y = _gated_norm(y, p["norm"][i], z)
     out = y @ p["out_proj"][i].to(dtp)
     return out, h_final
+
+
+def _ssd(xh, dtv, a, b, c, cfg: ModelConfig, ax):
+    """ssd_chunked; on DTensors per (batch, head) shard under `local_map`
+    on the layout `block` constrains xh to (batch over dp, heads over
+    'model'): the scan never mixes heads or sequences, and B/C are
+    replicated over 'model'."""
+    if not sharding.is_dtensor(xh):
+        return ssd_chunked(*sharding.contiguous_grads(xh, dtv, a, b, c),
+                           cfg.ssm_chunk)
+    dp, mp = ax.dp, ax.mp(xh.shape[2])
+    pl = lambda *spec: sharding.placements(spec, xh.device_mesh)
+    return sharding.local_map(
+        lambda *t: ssd_chunked(*t, cfg.ssm_chunk), xh.device_mesh,
+        (pl(dp, None, mp, None), pl(dp, None, mp), pl(mp),
+         pl(dp, None, None), pl(dp, None, None)),
+        (pl(dp, None, mp, None), pl(dp, mp, None, None)),
+    )(xh, dtv, a, b, c)
 
 
 def block_decode(p, i, u, conv_state, ssm_state, cfg: ModelConfig, ax):
@@ -220,6 +238,8 @@ def block_decode(p, i, u, conv_state, ssm_state, cfg: ModelConfig, ax):
     xh = x.reshape(-1, nh, hd).float()
     ssm_state = ssm_state.float() * da[..., None, None] \
         + torch.einsum("bh,bt,bhd->bhdt", dtv, b_.float(), xh)
+    ssm_state = sharding.constrain(
+        ssm_state, *sharding.ssm_state_spec(ax, ssm_state.shape[0], nh))
     y = torch.einsum("bhdt,bt->bhd", ssm_state, c_.float())
     y = y + p["D"][i].float()[None, :, None] * xh
     y = y.reshape(-1, din).to(dtp)
@@ -258,8 +278,8 @@ def _backbone(params, x, cfg: ModelConfig, ax):
     for i in range(cfg.n_layers):
         x = sharding.constrain(x, ax.dp, ax.mp(x.shape[1]), None)
         y, _ = remat_block(p, i, x, cfg, ax)
-        x = x + y
-    return L.rms_norm(x, params["ln_f"])
+        x = x + sharding.gather_grad(y, 1)
+    return sharding.gather(L.rms_norm(x, params["ln_f"]), 1)
 
 
 def forward_logits(params, batch, cfg: ModelConfig, ax):
@@ -300,7 +320,7 @@ def conv_tail(p, i, h, s: int, cfg: ModelConfig):
     """The conv state after a prompt: the last (w-1) pre-conv channel
     inputs of layer i (post-pre-norm) for hidden h [B, S, d], zero-padded on
     the left for short prompts (matches the causal conv's zero padding)."""
-    hn = L.rms_norm(h, p["ln"][i])
+    hn = sharding.gather(L.rms_norm(h, p["ln"][i]), 1)
     xbc = torch.cat(_in_proj(p, i, hn, h.dtype), dim=-1)
     w = cfg.conv_width
     tail = xbc[:, max(0, s - w + 1):]
@@ -325,7 +345,7 @@ def prefill(params, batch, cfg: ModelConfig, ax, cache_len=None):
         cache["ssm"][i] = h_final
         x = x + y
     cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    h = L.rms_norm(x, params["ln_f"])
+    h = sharding.gather(L.rms_norm(x, params["ln_f"]), 1)
     logits = L.logits_fn(params, h[:, -1:], cfg)[:, 0]
     return logits, cache
 

@@ -7,11 +7,21 @@ its expert's capacity goes to a sink row e*C and is dropped), run through
 three batched matmuls, and scatter-added back with their renormalized
 router weights.  The Switch load-balancing aux loss comes with it.
 
-One card has no mesh, so `moe_ffn` always takes the local path; the JAX
-package's shard_map path waits for the multi-card backend (ROADMAP Queue
-A item 6).  The combine's `index_add` sums each token's top_k rows in an
-unspecified order on the card, so the output equals the CPU's only within
-float rounding.
+Distribution: on plain tensors (one card) `moe_ffn` runs `_moe_local`
+directly.  On DTensors it runs `_moe_local` per data shard under
+`local_map`, the JAX package's `shard_map` path: tokens never cross the
+data axis, the expert weights are sharded on d_ff over 'model', and the
+in-placements are JAX's in_specs (x over dp, the router replicated,
+`expert_gate`/`expert_up` on their last dim, `expert_down` on its middle
+dim).  JAX's `psum(out, model)` is the out-placement `Partial()` over
+'model', and its `pmean(aux, model | dp)` is `Partial()` over every mesh
+dim of aux / mesh size: `Partial("avg")` would give the same value, but
+`DTensor.from_local` hands each rank the whole gradient of a partial
+output, which is right for a sum and n times too large for a mean.  Both
+are redistributed (to the residual's placement and to `Replicate()`)
+after the call, so the gradient stays in DTensor's hands.  The combine's
+`index_add` sums each token's top_k rows in an unspecified order on the
+card, so the output equals the CPU's only within float rounding.
 
 While obs is enabled, each call counts its token-expert assignments kept
 and dropped in `moe_token_assignments_total{layer=i, kept="true"|"false"}`
@@ -65,7 +75,10 @@ def _moe_local(x, router_w, w_gate, w_up, w_down, cfg: ModelConfig,
     # load-balance aux (Switch): E * sum_e f_e * P_e
     me = torch.mean(probs, dim=0)
     flat_e = top_e.reshape(-1)                                 # [T*k]
-    counts = torch.bincount(flat_e, minlength=e)
+    # index_add, not bincount: the same integer counts, and it also runs on
+    # meta tensors (the dry-run)
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
     fe = counts.float() / (t * k)
     aux = e * torch.sum(fe * me)
 
@@ -101,9 +114,38 @@ def _moe_local(x, router_w, w_gate, w_up, w_down, cfg: ModelConfig,
 
 
 def moe_ffn(p, i, x, cfg: ModelConfig, ax: sharding.AxisEnv):
-    """x: [B, S, d] -> ([B, S, d], aux)."""
+    """x: [B, S, d] -> ([B, S, d], aux); local_map'd on DTensors."""
     b, s, d = x.shape
-    out, aux = _moe_local(x.reshape(-1, d), p["router"][i],
-                          p["expert_gate"][i], p["expert_up"][i],
-                          p["expert_down"][i], cfg, layer=i)
-    return out.reshape(b, s, d), aux
+    args = (p["router"][i], p["expert_gate"][i], p["expert_up"][i],
+            p["expert_down"][i])
+    if not sharding.is_dtensor(x):
+        x, *args = sharding.contiguous_grads(x, *args)
+        out, aux = _moe_local(x.reshape(-1, d), *args, cfg, layer=i)
+        return out.reshape(b, s, d), aux
+
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = x.device_mesh
+    dp = ax.dp if ax.data_size > 1 else None
+    mp = ax.model if ax.model_size > 1 else None
+    pl = lambda *spec: sharding.placements(spec, mesh)
+    model_dims = [j for j, n in enumerate(mesh.mesh_dim_names)
+                  if n == ax.model]
+    out_pl = [Partial() if j in model_dims else r
+              for j, r in enumerate(pl(dp, None, None))]
+    body = lambda x, *w: _moe_body(x, *w, cfg=cfg, layer=i,
+                                   n_ranks=mesh.size())
+    out, aux = sharding.local_map(
+        body, mesh,
+        (pl(dp, None, None), pl(None, None), pl(None, None, mp),
+         pl(None, None, mp), pl(None, mp, None)),
+        (out_pl, [Partial()] * mesh.ndim))(x, *args)
+    return (out.redistribute(mesh, pl(dp, None, None)),
+            aux.redistribute(mesh, [Replicate()] * mesh.ndim))
+
+
+def _moe_body(x, *weights, cfg: ModelConfig, layer: int, n_ranks: int):
+    """The per-shard body: x [B_local, S, d] -> (out [B_local, S, d],
+    aux / n_ranks)."""
+    b, s, d = x.shape
+    out, aux = _moe_local(x.reshape(-1, d), *weights, cfg, layer=layer)
+    return out.reshape(b, s, d), aux / n_ranks

@@ -64,16 +64,16 @@ def init_abstract(cfg: ModelConfig):
 
 
 def _layer(p, i, x, cfg: ModelConfig, ax, positions, causal: bool):
-    h = L.rms_norm(x, p["ln1"][i])
+    h = sharding.gather(L.rms_norm(x, p["ln1"][i]), 1)
     q, k, v = L.attn_qkv(p, i, h, cfg, ax, positions)
     o = L.blocked_attention(q, k, v, cfg, ax, causal=causal)
-    x = x + L.attn_out(p, i, o, x.dtype)
-    h = L.rms_norm(x, p["ln2"][i])
+    x = x + sharding.gather_grad(L.attn_out(p, i, o, x.dtype), 1)
+    h = sharding.gather(L.rms_norm(x, p["ln2"][i]), 1)
     if cfg.family == "moe":
         y, aux = moe_mod.moe_ffn(p, i, h, cfg, ax)
     else:
         y, aux = L.mlp(p, i, h), 0.0
-    return x + y, aux
+    return x + sharding.gather_grad(y, 1), aux
 
 
 def backbone(params, x, cfg: ModelConfig, ax, positions, causal=None):
@@ -82,13 +82,14 @@ def backbone(params, x, cfg: ModelConfig, ax, positions, causal=None):
     p = params["layers"]
     aux_total = 0.0
     for i in range(cfg.n_layers):
+        x = sharding.constrain(x, ax.dp, ax.mp(x.shape[1]), None)
         if cfg.remat:
             x, aux = checkpoint(_layer, p, i, x, cfg, ax, positions, causal,
                                 use_reentrant=False)
         else:
             x, aux = _layer(p, i, x, cfg, ax, positions, causal)
         aux_total = aux_total + aux
-    return L.rms_norm(x, params["ln_f"]), aux_total
+    return sharding.gather(L.rms_norm(x, params["ln_f"]), 1), aux_total
 
 
 def _inputs_to_hidden(params, batch, cfg: ModelConfig, dtype):
@@ -160,18 +161,20 @@ def prefill(params, batch, cfg: ModelConfig, ax, cache_len: int | None = None):
     x, positions = _inputs_to_hidden(params, batch, cfg, dtype)
     b, s, _ = x.shape
     cache_len = cache_len or s
-    cache = init_cache(cfg, b, cache_len, dtype, x.device)
+    cache = {"k": [], "v": []}
     p = params["layers"]
     for i in range(cfg.n_layers):
-        h = L.rms_norm(x, p["ln1"][i])
+        x = sharding.constrain(x, ax.dp, ax.mp(x.shape[1]), None)
+        h = sharding.gather(L.rms_norm(x, p["ln1"][i]), 1)
         q, k, v = L.attn_qkv(p, i, h, cfg, ax, positions)
         o = L.blocked_attention(q, k, v, cfg, ax, causal=cfg.is_causal)
         x = x + L.attn_out(p, i, o, x.dtype)
-        cache["k"][i][:, :s] = k
-        cache["v"][i][:, :s] = v
-        x = x + _ffn(p, i, L.rms_norm(x, p["ln2"][i]), cfg, ax)
+        cache["k"].append(L.pad_seq(k, cache_len))
+        cache["v"].append(L.pad_seq(v, cache_len))
+        x = x + _ffn(p, i, sharding.gather(L.rms_norm(x, p["ln2"][i]), 1),
+                     cfg, ax)
     cache["pos"] = torch.tensor(s, dtype=torch.int32, device=x.device)
-    h = L.rms_norm(x, params["ln_f"])
+    h = sharding.gather(L.rms_norm(x, params["ln_f"]), 1)
     logits = L.logits_fn(params, h[:, -1:], cfg)[:, 0]
     return logits, cache
 
@@ -190,12 +193,11 @@ def decode_step(params, cache, batch, cfg: ModelConfig, ax):
     x = L.embed_tokens(params, tok[:, None], cfg, dtype)      # [B, 1, d]
     p = params["layers"]
     positions = pos[None]
-    at = pos.long().reshape(1)
     for i in range(cfg.n_layers):
         h = L.rms_norm(x, p["ln1"][i])
         q, k, v = L.attn_qkv(p, i, h, cfg, ax, positions)
-        kc = cache["k"][i].index_copy(1, at, k)
-        vc = cache["v"][i].index_copy(1, at, v)
+        kc = L.cache_write(cache["k"][i], k, pos)
+        vc = L.cache_write(cache["v"][i], v, pos)
         cache["k"][i] = kc
         cache["v"][i] = vc
         o = L.decode_attention(q[:, 0], kc, vc, pos)

@@ -59,19 +59,18 @@ def _shared_block(ps, h, x0, cfg: ModelConfig, ax, positions,
     with pos the 0-d write position.
     """
     xcat = torch.cat([h, x0], dim=-1)
-    a = L.rms_norm(xcat, ps["ln1"])
+    a = sharding.gather(L.rms_norm(xcat, ps["ln1"]), 1)
     pstack = _stacked(ps, ("wq", "wk", "wv", "wo"))
     q, k, v = L.attn_qkv(pstack, 0, a, cfg, ax, positions)
     if kv_cache is None:
         o = L.blocked_attention(q, k, v, cfg, ax, causal=True)
     else:
-        at = pos.long().reshape(1)
-        k = kv_cache[0].index_copy(1, at, k)
-        v = kv_cache[1].index_copy(1, at, v)
+        k = L.cache_write(kv_cache[0], k, pos)
+        v = L.cache_write(kv_cache[1], v, pos)
         o = L.decode_attention(q[:, 0], k, v, pos)[:, None]
-    h = h + L.attn_out(pstack, 0, o, h.dtype)
-    m = L.rms_norm(h, ps["ln2"])
-    h = h + L.mlp(_stacked(ps, "w_"), 0, m)
+    h = h + sharding.gather_grad(L.attn_out(pstack, 0, o, h.dtype), 1)
+    m = sharding.gather(L.rms_norm(h, ps["ln2"]), 1)
+    h = h + sharding.gather_grad(L.mlp(_stacked(ps, "w_"), 0, m), 1)
     return h, (k, v)
 
 
@@ -95,7 +94,7 @@ def _hidden(params, batch, cfg: ModelConfig, ax):
     for i in range(cfg.n_layers):
         h = sharding.constrain(h, ax.dp, ax.mp(h.shape[1]), None)
         y, _ = mamba2.remat_block(p, i, h, cfg, ax)
-        h = h + y
+        h = h + sharding.gather_grad(y, 1)
         if _is_shared_layer(i, cfg):
             if cfg.remat:
                 h, _ = checkpoint(_shared_block, params["shared"], h, x0, cfg,
@@ -103,7 +102,7 @@ def _hidden(params, batch, cfg: ModelConfig, ax):
             else:
                 h, _ = _shared_block(params["shared"], h, x0, cfg, ax,
                                      positions)
-    return L.rms_norm(h, params["ln_f"])
+    return sharding.gather(L.rms_norm(h, params["ln_f"]), 1)
 
 
 def loss_fn(params, batch, cfg: ModelConfig, ax):
@@ -153,11 +152,11 @@ def prefill(params, batch, cfg: ModelConfig, ax, cache_len: int | None = None):
         if _is_shared_layer(i, cfg):
             h, (k, v) = _shared_block(params["shared"], h, x0, cfg, ax,
                                       positions)
-            cache["attn_k"][si][:, :s] = k
-            cache["attn_v"][si][:, :s] = v
+            cache["attn_k"][si] = L.pad_seq(k, cache_len)
+            cache["attn_v"][si] = L.pad_seq(v, cache_len)
             si += 1
     cache["pos"] = torch.tensor(s, dtype=torch.int32, device=h.device)
-    h = L.rms_norm(h, params["ln_f"])
+    h = sharding.gather(L.rms_norm(h, params["ln_f"]), 1)
     logits = L.logits_fn(params, h[:, -1:], cfg)[:, 0]
     return logits, cache
 

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points refuse to run on the CPU unless asked to."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+the JAX package's `benchmarks`), and its entry points refuse to run on the
+CPU unless asked to."""
 import os
 import pathlib
 import subprocess
@@ -26,7 +27,8 @@ import importlib, pkgutil, sys
 {imports}
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m == "benchmarks" or m.startswith("benchmarks."))
 sys.exit("imported: " + ", ".join(bad) if bad else 0)
 """
 
@@ -64,6 +66,17 @@ def test_serve_and_launch_modules_import_no_jax_and_no_reference_package():
                "repro_torch.serve.sim, repro_torch.serve.service, "
                "repro_torch.launch.serve, repro_torch.launch.steps, "
                "repro_torch.launch.train")
+
+
+def test_multicard_modules_import_no_jax_and_no_reference_package():
+    _run_clean("import repro_torch.launch.dryrun, repro_torch.launch.mesh, "
+               "repro_torch.launch.steps, repro_torch.models.sharding, "
+               "repro_torch.models.moe, repro_torch.models.layers, "
+               "repro_torch.models.transformer, repro_torch.models.mamba2, "
+               "repro_torch.models.zamba2, tempfile\n"
+               "from repro_torch.launch import dryrun\n"
+               "with tempfile.TemporaryDirectory() as d:\n"
+               "    dryrun.main(['--he-agg', '--mesh', 'single', '--out', d])")
 
 
 def test_drivers_need_cuda_unless_cpu_is_asked_for():
