@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ckks import encoding, threefry
 from repro_torch.core.ckks.params import CkksContext
 from repro_torch.kernels import ntt as _ntt
@@ -154,19 +155,21 @@ def expand_a_for_ids(ctx: CkksContext, a_seed: int, ids,
     (int64 tensor, taken mod 2**32), in the layout `ctx` names.  Row r is
     randint(key_r, (L, N), 0, q_l per limb): one draw per row over the whole
     [L, N] block, so a row depends only on its own key and rows can be
-    expanded in any grouping."""
-    base = threefry.prng_key(a_seed, ctx.device)
-    ids = torch.as_tensor(ids, dtype=torch.int64).to(ctx.device)
-    keys = _keys_for_ids(base, ids, derive, ctx.threefry_partitionable)
-    l, n = ctx.n_limbs, ctx.n_poly
-    qs = ctx.device_tables.qs.to(torch.int64)[:, None]
-    out = torch.empty((ids.numel(), l, n), dtype=torch.int32,
-                      device=ctx.device)
-    step = max(1, _EXPAND_VALUES // (l * n))
-    for r in range(0, ids.numel(), step):
-        out[r:r + step] = threefry.randint_u32(
-            keys[r:r + step], (l, n), qs, ctx.threefry_partitionable)
-    return out
+    expanded in any grouping.  Runs under an `he.expand_a` span timed on
+    the context's device."""
+    with obs.span("he.expand_a", device=ctx.device, rows=len(ids)):
+        base = threefry.prng_key(a_seed, ctx.device)
+        ids = torch.as_tensor(ids, dtype=torch.int64).to(ctx.device)
+        keys = _keys_for_ids(base, ids, derive, ctx.threefry_partitionable)
+        l, n = ctx.n_limbs, ctx.n_poly
+        qs = ctx.device_tables.qs.to(torch.int64)[:, None]
+        out = torch.empty((ids.numel(), l, n), dtype=torch.int32,
+                          device=ctx.device)
+        step = max(1, _EXPAND_VALUES // (l * n))
+        for r in range(0, ids.numel(), step):
+            out[r:r + step] = threefry.randint_u32(
+                keys[r:r + step], (l, n), qs, ctx.threefry_partitionable)
+        return out
 
 
 def expand_a_rows(ctx: CkksContext, a_seed: int, start: int, count: int,

@@ -26,6 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.ckks.params import CkksContext
 from repro_torch.kernels import ref as _ref
 
@@ -163,18 +164,20 @@ def _root_index_tensor(ctx: CkksContext, device) -> torch.Tensor:
 
 def encode(values, ctx: CkksContext, delta: float | None = None):
     """Real values float32[B, slots] -> coefficient residues
-    int32[B, L, N] on the values' device (the `encode_jnp` counterpart)."""
+    int32[B, L, N] on the values' device (the `encode_jnp` counterpart),
+    under an `he.encode` span timed on that device."""
     n = ctx.n_poly
     delta = float(delta if delta is not None else ctx.delta)
     dev = values.device
     b = values.shape[0]
-    buf = torch.zeros((b, 2 * n), dtype=torch.complex64, device=dev)
-    buf[:, _root_index_tensor(ctx, dev)] = values.to(torch.complex64)
-    c = (2.0 / n) * torch.fft.fft(buf, dim=-1).real[:, :n]
-    del buf
-    c_int = torch.round(c * delta).to(torch.int32)
-    qs = ctx.device_tables.qs.to(dev)[:, None]
-    return _ref.mod_reduce_centered(c_int[:, None, :], qs)  # [B, L, N]
+    with obs.span("he.encode", device=dev, rows=b):
+        buf = torch.zeros((b, 2 * n), dtype=torch.complex64, device=dev)
+        buf[:, _root_index_tensor(ctx, dev)] = values.to(torch.complex64)
+        c = (2.0 / n) * torch.fft.fft(buf, dim=-1).real[:, :n]
+        del buf
+        c_int = torch.round(c * delta).to(torch.int32)
+        qs = ctx.device_tables.qs.to(dev)[:, None]
+        return _ref.mod_reduce_centered(c_int[:, None, :], qs)  # [B, L, N]
 
 
 def decode(residues, ctx: CkksContext, scale: float):

@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from repro_torch import obs
+
 
 @dataclasses.dataclass(frozen=True)
 class FlatSpec:
@@ -154,17 +156,23 @@ def make_partition(mask, slots: int) -> MaskPartition:
 
 def split_by_mask(vec, part: MaskPartition):
     """float32[P] -> (enc float32[n_chunks, slots] zero-padded,
-    plain float32[n_plain])."""
-    mask = part.mask.to(vec.device)
-    enc = torch.zeros(part.n_enc_padded, dtype=vec.dtype, device=vec.device)
-    enc[: part.n_enc] = vec[mask]
-    return enc.reshape(part.n_chunks, part.slots), vec[~mask]
+    plain float32[n_plain]), under an `he.split` span timed on the vector's
+    device."""
+    with obs.span("he.split", device=vec.device):
+        mask = part.mask.to(vec.device)
+        enc = torch.zeros(part.n_enc_padded, dtype=vec.dtype,
+                          device=vec.device)
+        enc[: part.n_enc] = vec[mask]
+        return enc.reshape(part.n_chunks, part.slots), vec[~mask]
 
 
 def merge_by_mask(enc_chunks, plain, part: MaskPartition):
-    """Inverse of split_by_mask -> float32[P]."""
-    mask = part.mask.to(plain.device)
-    out = torch.zeros(part.n_total, dtype=torch.float32, device=plain.device)
-    out[mask] = enc_chunks.reshape(-1)[: part.n_enc].to(torch.float32)
-    out[~mask] = plain.to(torch.float32)
-    return out
+    """Inverse of split_by_mask -> float32[P], under an `he.merge` span
+    timed on the plain part's device."""
+    with obs.span("he.merge", device=plain.device):
+        mask = part.mask.to(plain.device)
+        out = torch.zeros(part.n_total, dtype=torch.float32,
+                          device=plain.device)
+        out[mask] = enc_chunks.reshape(-1)[: part.n_enc].to(torch.float32)
+        out[~mask] = plain.to(torch.float32)
+        return out

@@ -8,16 +8,24 @@ metrics registry, trace spans, kernel timing hooks, exporters.
   * **trace spans** (`obs/trace.py`): nestable `span()` context managers
     emitting Chrome-trace-event JSONL loadable in Perfetto and
     `tools/round_report.py`, each also a `torch.profiler.record_function`
-    (and an NVTX range on a CUDA build).
+    (and an NVTX range on a CUDA build).  `span(name, device=...)` also
+    times the span on a CUDA stream with an event pair, without
+    synchronizing: `collect()` returns the events with each such span's
+    `device_ms` filled in.
   * **kernel hooks** (`obs/hooks.py`): per-op wall time of every kernel op
     in `kernels/ops.py`, synchronized before and after, and
     `kernel_launch` spans around compound dispatches.
 
-Spans and hooks are off until `configure(enabled=True)`; the trace stays
-in memory until `configure(trace_path=...)`.  No environment variable
-switches anything (the JAX package reads REPRO_OBS and REPRO_OBS_TRACE).
-Exporters: the trace JSONL sink, `prometheus_text()` / `dump_metrics()`,
-and `provenance()`.
+Spans and instant events record while obs is enabled
+(`configure(enabled=True)`) or while a `torch.profiler` session runs in the
+process, so profiling the program collects its stages with no switch.  The
+kernel hooks, which synchronize, stay on `configure(enabled=True)` alone.
+The trace stays in memory until `configure(trace_path=...)`.  An event's
+`ts` counts perf_counter microseconds from the tracer's creation;
+`to_profiler_ns(ts)` puts it on torch.profiler's wall-clock timestamps.
+No environment variable switches anything (the JAX package reads REPRO_OBS
+and REPRO_OBS_TRACE).  Exporters: the trace JSONL sink, `collect()`,
+`prometheus_text()` / `dump_metrics()`, and `provenance()`.
 """
 from __future__ import annotations
 
@@ -26,16 +34,17 @@ import torch
 from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge, Histogram,
                                      MetricsRegistry)
 from repro_torch.obs.trace import (NULL_SPAN, OBS_VERSION, Span, Tracer,
-                                   configure, enabled, event, flush,
-                                   get_tracer, span, trace_path)
+                                   collect, configure, enabled, event, flush,
+                                   get_tracer, recording, span,
+                                   to_profiler_ns, trace_path)
 from repro_torch.obs.hooks import (kernel_hooks_enabled, kernel_launch,
                                    maybe_block, timed_kernel)
 
 __all__ = [
     "REGISTRY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "NULL_SPAN", "OBS_VERSION", "Span", "Tracer",
-    "configure", "enabled", "event", "flush", "get_tracer", "span",
-    "trace_path",
+    "collect", "configure", "enabled", "event", "flush", "get_tracer",
+    "recording", "span", "to_profiler_ns", "trace_path",
     "kernel_hooks_enabled", "kernel_launch", "maybe_block", "timed_kernel",
     "counter", "gauge", "histogram", "prometheus_text", "dump_metrics",
     "provenance",

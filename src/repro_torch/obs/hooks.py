@@ -1,5 +1,6 @@
 """Kernel-launch timing hooks for `kernels/ops.py` (the JAX package's
-`repro.obs.hooks`), on while obs is enabled (`obs.configure`).
+`repro.obs.hooks`), on while obs is enabled (`obs.configure`), and only
+then: a torch.profiler session turns the spans on, never these hooks.
 
   * `timed_kernel` wraps one kernel op of `kernels/ops.py`.  It
     synchronizes the op's device before the call and after it, so the
@@ -31,7 +32,7 @@ from repro_torch.obs import trace as _trace
 
 
 def kernel_hooks_enabled() -> bool:
-    """Gate for the ops hook (the same switch as spans)."""
+    """Gate for the ops hook: `configure(enabled=True)` alone."""
     return _trace.enabled()
 
 

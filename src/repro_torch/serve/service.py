@@ -41,6 +41,13 @@ The checkpoint is the JAX package's: the same tree, the same `extra`
 keys and JSON types, the result's residues as u32 in the reference's
 axis order (`interop`), so either package resumes the other's.
 
+Telemetry: the wait for the service's lock goes to the
+`serve_lock_wait_seconds{caller}` histogram and a `serve.lock_wait` span
+(every submit; a step only when it had to wait), and each blob's time from
+its accept to the start of its first fold to `serve_queue_wait_seconds`
+and a `serve.queue_wait` instant event (`wait_s`).  The spans and events
+record while obs is enabled or a torch.profiler session runs.
+
 On the card: the background worker (`start`) runs the state machine in
 a thread pinned to the context's device, and a round's device work is
 synchronized before it becomes DONE, so `result()` from another thread
@@ -109,6 +116,10 @@ class RoundState:
         # accepted updates, in arrival order; each is a dict with keys
         # cid / n_samples / nbytes / blob (bytes) / path (spool file|None)
         self.accepted: list[dict] = []
+        # perf_counter time of each accept, by index into `accepted`, until
+        # the blob's first fold reads it: telemetry, never checkpointed (a
+        # resumed round has none)
+        self.accepted_at: dict[int, float] = {}
         self.seen_cids: set[int] = set()
         self.rejected: _Counter = _Counter()
         # fold progress: indices into `accepted` that failed wire
@@ -218,6 +229,10 @@ class AggregationService:
         self._m_done = obs.counter("serve_rounds", status=ST_DONE, **lab)
         self._m_failed = obs.counter("serve_rounds", status=ST_FAILED, **lab)
         self._m_ckpts = obs.counter("serve_checkpoints", **lab)
+        self._m_lock_wait = {
+            c: obs.histogram("serve_lock_wait_seconds", caller=c, **lab)
+            for c in ("submit", "step")}
+        self._m_queue_wait = obs.histogram("serve_queue_wait_seconds", **lab)
 
     def add_transcipher_materials(self, cid: int, rnd: int,
                                   materials) -> None:
@@ -292,7 +307,7 @@ class AggregationService:
         wire validation happens at fold time, where a corrupt blob is
         dropped atomically and the round renormalizes without it.
         """
-        with self._lock:
+        with self._locked("submit"):
             rnd = self._open_rnd
             if rnd is None:
                 self._m_rejected[REJ_NO_ROUND].inc()
@@ -319,6 +334,7 @@ class AggregationService:
             if self._ckpt is not None:
                 rec["path"] = self._spool(rnd, rec)
             rs.accepted.append(rec)
+            rs.accepted_at[len(rs.accepted) - 1] = time.perf_counter()
             rs.seen_cids.add(int(meta.cid))
             self._m_accepted.inc()
             if self.ledger is not None:
@@ -404,7 +420,7 @@ class AggregationService:
         the network: this is the half of the service a worker thread (or
         the driver loop) pumps while submit() keeps accepting the next
         round's traffic."""
-        with self._lock:
+        with self._locked("step"):
             pending = self.unfinished()
             if not pending:
                 return False
@@ -441,6 +457,12 @@ class AggregationService:
                     break
                 i = good[rs.cursor]
                 rec = rs.accepted[i]
+                accepted_at = rs.accepted_at.pop(i, None)
+                if accepted_at is not None:
+                    wait = time.perf_counter() - accepted_at
+                    self._m_queue_wait.observe(wait)
+                    obs.event("serve.queue_wait", round=rs.rnd,
+                              cid=rec["cid"], wait_s=wait)
                 try:
                     ingest.ingest(self._blob(rs.rnd, rec),
                                   rs.weights[rs.cursor])
@@ -519,6 +541,22 @@ class AggregationService:
             del self._rounds[rnd]
 
     # -- background worker ---------------------------------------------------
+
+    @contextlib.contextmanager
+    def _locked(self, caller: str):
+        """Hold the service lock, timing the wait for it into the
+        `serve_lock_wait_seconds{caller}` histogram and a `serve.lock_wait`
+        span: every submit's, and a step's only when the lock was taken
+        (an idle worker polls step() every `poll_s`)."""
+        if caller == "submit" or not self._lock.acquire(blocking=False):
+            t0 = time.perf_counter()
+            with obs.span("serve.lock_wait", caller=caller):
+                self._lock.acquire()
+            self._m_lock_wait[caller].observe(time.perf_counter() - t0)
+        try:
+            yield
+        finally:
+            self._lock.release()
 
     def _device_guard(self):
         """The worker thread's device context: the context's card (a new

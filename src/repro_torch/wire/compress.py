@@ -20,7 +20,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core.ckks import cipher
 from repro_torch.core.ckks.cipher import Ciphertext
 from repro_torch.core.ckks.params import CkksContext
@@ -136,21 +136,25 @@ def limb_drop(ctx: CkksContext, ct: Ciphertext, keep: int) -> Ciphertext:
 def quantize_plain(x, codec: str) -> tuple[np.ndarray, float]:
     """f32[P] (tensor or array) -> (wire array, scale).  i8 is symmetric
     per-tensor; an empty or all-zero segment quantizes to zeros at scale
-    1."""
+    1.  A tensor's copy to the host runs under a `wire.d2h` span, the cast
+    under `wire.codec`."""
     if isinstance(x, torch.Tensor):
-        x = x.detach().cpu().numpy()
-    x = np.asarray(x, dtype=np.float32)
-    if codec == "f32":
-        return x, 1.0
-    if codec == "f16":
-        return x.astype(np.float16), 1.0
-    if codec == "i8":
-        amax = float(np.max(np.abs(x))) if x.size else 0.0
-        scale = amax / 127.0
-        if not np.isfinite(scale) or scale <= 0.0:
-            return np.zeros(x.shape, dtype=np.int8), 1.0
-        return np.clip(np.rint(x / scale), -127, 127).astype(np.int8), scale
-    raise ValueError(codec)
+        with obs.span("wire.d2h"):
+            x = x.detach().cpu().numpy()
+    with obs.span("wire.codec", codec=codec):
+        x = np.asarray(x, dtype=np.float32)
+        if codec == "f32":
+            return x, 1.0
+        if codec == "f16":
+            return x.astype(np.float16), 1.0
+        if codec == "i8":
+            amax = float(np.max(np.abs(x))) if x.size else 0.0
+            scale = amax / 127.0
+            if not np.isfinite(scale) or scale <= 0.0:
+                return np.zeros(x.shape, dtype=np.int8), 1.0
+            return (np.clip(np.rint(x / scale), -127, 127).astype(np.int8),
+                    scale)
+        raise ValueError(codec)
 
 
 def dequantize_plain(arr: np.ndarray, codec: str, scale: float) -> np.ndarray:

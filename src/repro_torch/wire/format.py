@@ -27,6 +27,7 @@ numpy or torch error, and never reads past a frame's payload.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import struct
 from typing import Iterator
@@ -34,7 +35,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core.ckks.cipher import Ciphertext
 from repro_torch.core.packing import MaskPartition
 from repro_torch.core.secure_agg import ProtectedUpdate
@@ -226,10 +227,14 @@ def unpack_array(payload, off: int = 0) -> tuple[np.ndarray, int]:
     return arr.reshape(shape).copy(), off + nbytes
 
 
-def _residues(arr, device, what: str) -> torch.Tensor:
-    """A parsed array -> int32 residue tensor; WireError unless u32."""
+def _check_residues(arr, what: str) -> None:
     if arr.dtype != np.uint32:
         raise WireError(f"{what} array must be uint32, got {arr.dtype}")
+
+
+def _residues(arr, device, what: str) -> torch.Tensor:
+    """A parsed array -> int32 residue tensor; WireError unless u32."""
+    _check_residues(arr, what)
     return torch.from_numpy(arr.view(np.int32)).to(device)
 
 
@@ -379,33 +384,58 @@ def serialize_update(upd: ProtectedUpdate, *,
     """ProtectedUpdate -> one nested frame.  `seeded` (from seed_compress
     of the same encryption) replaces upd.ct on the wire; `version` pins
     every frame in the nest."""
-    ct_frame = (serialize_seeded_ciphertext(seeded, version=version)
+    with obs.span("wire.serialize"):
+        with obs.span("wire.d2h"):
+            host = interop.residues_to_np(seeded.c0 if seeded is not None
+                                          else upd.ct.data)
+        arr, qscale = _c.quantize_plain(upd.plain, plain_codec)
+        with obs.span("wire.frames"):
+            ct_frame = (serialize_seeded_ciphertext(
+                dataclasses.replace(seeded, c0=host), version=version)
                 if seeded is not None
-                else serialize_ciphertext(upd.ct, version=version))
-    arr, qscale = _c.quantize_plain(upd.plain, plain_codec)
-    return frame(T_PROTECTED_UPDATE,
-                 ct_frame + serialize_plain_segment(arr, plain_codec, qscale,
-                                                    version=version),
-                 version=version)
+                else serialize_ciphertext(Ciphertext(data=host,
+                                                     scale=upd.ct.scale),
+                                          version=version))
+            return frame(T_PROTECTED_UPDATE,
+                         ct_frame + serialize_plain_segment(
+                             arr, plain_codec, qscale, version=version),
+                         version=version)
 
 
 def _parse_update(payload, ctx) -> ProtectedUpdate:
-    ftype, _, ct_version, ct_payload, off = parse_frame_v(payload, 0)
-    if ftype == T_CIPHERTEXT:
-        ct = _parse_ciphertext(ct_payload, _device(ctx))
-    elif ftype == T_SEEDED_CIPHERTEXT:
-        if ctx is None:
-            raise WireError("seeded ciphertext needs a ctx to expand")
-        ct = _parse_seeded_ciphertext(ct_payload, ct_version).expand(ctx)
-    else:
-        raise WireError(f"unexpected inner frame type {ftype}")
-    ftype, _, pl_payload, _ = parse_frame(payload, off)
-    if ftype != T_PLAIN_SEGMENT:
-        raise WireError(f"expected plain segment, got type {ftype}")
-    arr, codec, qscale = _parse_plain_segment(pl_payload)
-    plain = _c.dequantize_plain(arr, codec, qscale)
-    return ProtectedUpdate(ct=ct, plain=torch.from_numpy(plain).to(
-        _device(ctx)))
+    """The protected update's frames parsed on the host (`wire.frames`),
+    the plain codec undone (`wire.codec`), then the copies to ctx's device
+    (`wire.h2d`); a seeded ciphertext then expands its `a` there."""
+    dev = _device(ctx)
+    with obs.span("wire.frames"):
+        ct_type, _, ct_version, ct_payload, off = parse_frame_v(payload, 0)
+        if ct_type == T_CIPHERTEXT:
+            (scale,) = struct.unpack_from("<d", ct_payload, 0)
+            data, _ = unpack_array(ct_payload, 8)
+            _check_residues(data, "ciphertext")
+        elif ct_type == T_SEEDED_CIPHERTEXT:
+            if ctx is None:
+                raise WireError("seeded ciphertext needs a ctx to expand")
+            sct = _parse_seeded_ciphertext(ct_payload, ct_version)
+        else:
+            raise WireError(f"unexpected inner frame type {ct_type}")
+        ftype, _, pl_payload, _ = parse_frame(payload, off)
+        if ftype != T_PLAIN_SEGMENT:
+            raise WireError(f"expected plain segment, got type {ftype}")
+        arr, codec, qscale = _parse_plain_segment(pl_payload)
+    with obs.span("wire.codec"):
+        plain = _c.dequantize_plain(arr, codec, qscale)
+    with obs.span("wire.h2d"):
+        if ct_type == T_CIPHERTEXT:
+            ct = Ciphertext(data=_residues(data, dev, "ciphertext"),
+                            scale=scale)
+        else:
+            sct = dataclasses.replace(
+                sct, c0=interop.residues_from_np(sct.c0, dev))
+        plain = torch.from_numpy(plain).to(dev)
+    if ct_type != T_CIPHERTEXT:
+        ct = sct.expand(ctx)
+    return ProtectedUpdate(ct=ct, plain=plain)
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +517,7 @@ _PARSERS = {
     T_MASK_PARTITION: lambda p, ctx, v: _parse_partition(p, _device(ctx)),
     T_MASKED_CHUNK: lambda p, ctx, v: _parse_masked_chunk(p, v),
     # unwrap to the nested escrow seeded-ciphertext artifact
-    T_TRANSCIPHER_SEED: lambda p, ctx, v: deserialize(p, ctx, 0)[0],
+    T_TRANSCIPHER_SEED: lambda p, ctx, v: _deserialize(p, ctx, 0)[0],
 }
 
 
@@ -496,7 +526,13 @@ def deserialize(buf, ctx=None, off: int = 0):
     CPU without a ctx); `ctx` is needed to expand seeded ciphertexts nested
     in protected updates.  A bare seeded-ciphertext frame comes back
     unexpanded, its c0 a u32 numpy array.  Any malformed input raises
-    WireError."""
+    WireError.  Runs under a `wire.deserialize` span."""
+    with obs.span("wire.deserialize", nbytes=len(buf) - off):
+        return _deserialize(buf, ctx, off)
+
+
+def _deserialize(buf, ctx=None, off: int = 0):
+    """`deserialize` without its span, for a caller's per-frame loop."""
     ftype, _, version, payload, end = parse_frame_v(buf, off)
     parser = _PARSERS.get(ftype)
     if parser is None:

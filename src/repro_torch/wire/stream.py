@@ -57,8 +57,15 @@ the flush, and a rejected update restores every escrow seed it touched.
 
 Telemetry: an ingest's counters are registry series labelled with its
 `ingest_id` (`wire_ingest_*`, `repro_torch.obs`), read through read-only
-properties; `ingest` runs under a `wire.ingest` span and each accumulate
-under a `weighted_accum_chunks` kernel_launch while obs is enabled.
+properties.  While spans record (obs enabled or a torch.profiler session),
+`ingest` runs under a `wire.ingest` span holding one `wire.frames` span
+(the frame loop), a `wire.h2d` span (the plain segment's copy) and the
+`wire.flush`, which holds a `wire.h2d` span (the gather of rows into one
+host buffer and its copies to the device) and the `he.expand_a` of each
+seed; `pack_update_frames` runs under
+`wire.pack` with `wire.d2h`, `wire.frames` and the plain codec's spans.  No
+span opens per frame or per chunk.  The accumulate is the engine's
+`sharded.weighted_accum_chunks` launch.
 """
 from __future__ import annotations
 
@@ -120,30 +127,37 @@ def pack_update_frames(upd: ProtectedUpdate, *, cid: int, n_samples: int,
     id in every v2 seeded frame.  `plain_codec` is f32, f16 or i8;
     `version` pins every frame (v1 needs DERIVE_FOLD_CHUNK).  Returns
     UPDATE_BEGIN + CT_CHUNK * n_chunks + PLAIN_SEGMENT + UPDATE_END."""
-    n_chunks = int(upd.ct.data.shape[0])
-    kind = CT_SEEDED if seeded is not None else CT_FULL
-    out = [wf.frame(wf.T_UPDATE_BEGIN,
-                    _BEGIN.pack(cid, n_samples, rnd, n_chunks, kind),
-                    version=version)]
-    ct_host = interop.residues_to_np(seeded.c0 if seeded is not None
-                                  else upd.ct.data)
-    for b in range(n_chunks):
-        if seeded is not None:
-            chunk = _c.SeededCiphertext(c0=ct_host[b:b + 1],
-                                        seed=seeded.seed, scale=seeded.scale,
-                                        chunk_offset=b,
-                                        derive=seeded.derive)
-            inner = wf.serialize_seeded_ciphertext(chunk, version=version)
-        else:
-            inner = wf.serialize_ciphertext(Ciphertext(
-                data=ct_host[b:b + 1], scale=upd.ct.scale), version=version)
-        out.append(wf.frame(wf.T_CT_CHUNK, struct.pack("<I", b) + inner,
-                            version=version))
-    arr, qscale = _c.quantize_plain(upd.plain, plain_codec)
-    out.append(wf.serialize_plain_segment(arr, plain_codec, qscale,
-                                          version=version))
-    out.append(wf.frame(wf.T_UPDATE_END, b"", version=version))
-    return b"".join(out)
+    with obs.span("wire.pack", cid=cid, round=rnd):
+        n_chunks = int(upd.ct.data.shape[0])
+        kind = CT_SEEDED if seeded is not None else CT_FULL
+        with obs.span("wire.d2h"):
+            ct_host = interop.residues_to_np(seeded.c0 if seeded is not None
+                                             else upd.ct.data)
+        with obs.span("wire.frames"):
+            out = [wf.frame(wf.T_UPDATE_BEGIN,
+                            _BEGIN.pack(cid, n_samples, rnd, n_chunks, kind),
+                            version=version)]
+            for b in range(n_chunks):
+                if seeded is not None:
+                    chunk = _c.SeededCiphertext(
+                        c0=ct_host[b:b + 1], seed=seeded.seed,
+                        scale=seeded.scale, chunk_offset=b,
+                        derive=seeded.derive)
+                    inner = wf.serialize_seeded_ciphertext(chunk,
+                                                           version=version)
+                else:
+                    inner = wf.serialize_ciphertext(Ciphertext(
+                        data=ct_host[b:b + 1], scale=upd.ct.scale),
+                        version=version)
+                out.append(wf.frame(wf.T_CT_CHUNK,
+                                    struct.pack("<I", b) + inner,
+                                    version=version))
+        arr, qscale = _c.quantize_plain(upd.plain, plain_codec)
+        with obs.span("wire.frames"):
+            out.append(wf.serialize_plain_segment(arr, plain_codec, qscale,
+                                                  version=version))
+            out.append(wf.frame(wf.T_UPDATE_END, b"", version=version))
+            return b"".join(out)
 
 
 def pack_masked_update_frames(masked: _c.MaskedChunk,
@@ -263,7 +277,6 @@ class StreamIngest:
         self._shape = None           # (L, N) pinned by the first chunk
         self._in_scale = None
         self._pending: list[_Ready] = []
-        self._sharded = sharded is not None
         # one label set per ingest instance; obs.REGISTRY.total(
         # "wire_ingest_...") sums over instances
         self.ingest_id = str(next(self._ids))
@@ -442,29 +455,35 @@ class StreamIngest:
         mgroups: dict[int, list[int]] = {}
         for j in by_kind.get("masked", ()):
             mgroups.setdefault(id(batch[j].materials), []).append(j)
-        full = host_rows(by_kind["full"]) if "full" in by_kind else None
-        c0 = host_rows(by_kind["seeded"]) if "seeded" in by_kind else None
-        device = (torch.stack([batch[j].data for j in by_kind["device"]])
-                  if "device" in by_kind else None)
+        with obs.span("wire.h2d", rows=k):
+            full = host_rows(by_kind["full"]) if "full" in by_kind else None
+            c0 = host_rows(by_kind["seeded"]) if "seeded" in by_kind \
+                else None
+            device = (torch.stack([batch[j].data
+                                   for j in by_kind["device"]])
+                      if "device" in by_kind else None)
+            words = [torch.from_numpy(host_rows(gjs).view(np.int32)).to(
+                self.ctx.device) for gjs in mgroups.values()]
+            for out, (dev, lo, hi) in zip(outs, slots):
+                if full is not None:
+                    out[sel(by_kind["full"], dev)] = to(full, lo, hi, dev)
+                if device is not None:
+                    out[sel(by_kind["device"], dev)] = \
+                        device[:, lo:hi].to(dev)
+                if c0 is not None:
+                    out[sel(by_kind["seeded"], dev), :, 0, :] = to(
+                        c0, lo, hi, dev)
         unmasked = []
-        for gjs in mgroups.values():
+        for gjs, g_words in zip(mgroups.values(), words):
             sm = batch[gjs[0]].materials
             g_ids = ids(gjs)
             d_rows = (g_ids - sm.chunk_offset).to(self.ctx.device)
-            words = torch.from_numpy(host_rows(gjs).view(np.int32)).to(
-                self.ctx.device)
             unmasked.append((gjs, transcipher.unmask_c0(
-                self.ctx, sm, words, d_rows),
+                self.ctx, sm, g_words, d_rows),
                 cipher.expand_a_for_ids(self.ctx, sm.a_seed, g_ids,
                                         sm.derive)))
+        del words
         for out, (dev, lo, hi) in zip(outs, slots):
-            if full is not None:
-                out[sel(by_kind["full"], dev)] = to(full, lo, hi, dev)
-            if device is not None:
-                out[sel(by_kind["device"], dev)] = device[:, lo:hi].to(dev)
-            if c0 is not None:
-                out[sel(by_kind["seeded"], dev), :, 0, :] = to(c0, lo, hi,
-                                                               dev)
             for (seed, derive), gjs in groups.items():
                 out[sel(gjs, dev), :, 1, :] = cipher.expand_a_for_ids(
                     on(dev), seed, ids(gjs), derive)[:, lo:hi]
@@ -538,11 +557,9 @@ class StreamIngest:
                              tuple(blocks))
 
         a = grid((len(batch), l, 2, n), accs)
-        with obs.kernel_launch("weighted_accum_chunks", rows=len(batch),
-                               sharded=self._sharded) as kl:
-            kl.done(eng.weighted_accum_chunks(
-                a, grid((len(batch), l, 2, n), cts),
-                grid((len(batch), l), ws), limb_axis=-3, out=a))
+        eng.weighted_accum_chunks(a, grid((len(batch), l, 2, n), cts),
+                                  grid((len(batch), l), ws), limb_axis=-3,
+                                  out=a)
         for block, sel, rows_out in copy_back:
             block.index_copy_(0, sel, rows_out)
         self._rows.update(r.chunk_idx for r in batch)
@@ -550,19 +567,22 @@ class StreamIngest:
     def flush(self) -> None:
         """Fold every ready row into the accumulator: one accumulate launch
         per pass (a second pass only if one chunk index was buffered twice,
-        to keep arrival order)."""
-        while self._pending:
-            batch, rest, seen = [], [], set()
-            for item in self._pending:
-                if item.chunk_idx in seen:
-                    rest.append(item)
-                else:
-                    seen.add(item.chunk_idx)
-                    batch.append(item)
-            self._pending = rest
-            self._fold(batch)
-            self._m_launches.inc()
-            self._note_decoded(-len(batch))
+        to keep arrival order), under a `wire.flush` span: its time beside
+        its `wire.h2d`, `he.expand_a` and accumulate is the per-row host
+        bookkeeping."""
+        with obs.span("wire.flush", rows=len(self._pending)):
+            while self._pending:
+                batch, rest, seen = [], [], set()
+                for item in self._pending:
+                    if item.chunk_idx in seen:
+                        rest.append(item)
+                    else:
+                        seen.add(item.chunk_idx)
+                        batch.append(item)
+                self._pending = rest
+                self._fold(batch)
+                self._m_launches.inc()
+                self._note_decoded(-len(batch))
 
     def _plain_to_device(self, arr: np.ndarray, codec: str, qscale: float):
         """Dequantize on the device (f16 and i8 move half or a quarter of
@@ -612,83 +632,84 @@ class StreamIngest:
         prev_in_scale = self._in_scale
         prev_shape = self._shape
         try:
-            for ftype, _, payload in wf.iter_frames(blob):
-                if ftype == wf.T_UPDATE_BEGIN:
-                    cid, n_samples, rnd, n_chunks, kind = _BEGIN.unpack_from(
-                        payload, 0)
-                    if kind not in _CT_KINDS:
-                        raise wf.WireError(
-                            f"unknown ct_kind {kind} in UPDATE_BEGIN; this "
-                            f"build implements {_CT_KINDS}")
-                    meta = UpdateMeta(cid, n_samples, rnd, n_chunks,
-                                      kind == CT_SEEDED,
-                                      kind == CT_TRANSCIPHER)
-                elif ftype == wf.T_CT_CHUNK:
-                    if meta is None:
-                        raise wf.WireError("CT_CHUNK before UPDATE_BEGIN")
-                    (chunk_idx,) = struct.unpack_from("<I", payload, 0)
-                    if chunk_idx >= meta.n_chunks:
-                        raise wf.WireError(
-                            f"chunk index {chunk_idx} >= declared "
-                            f"n_chunks {meta.n_chunks}")
-                    if chunk_idx in chunks_seen:
-                        raise wf.WireError(f"duplicate chunk {chunk_idx}")
-                    chunks_seen.add(chunk_idx)
-                    inner, _ = wf.deserialize(payload, None, off=4)
-                    got = ("masked" if isinstance(inner, _c.MaskedChunk)
-                           else "seeded"
-                           if isinstance(inner, _c.SeededCiphertext)
-                           else "full")
-                    want = ("masked" if meta.transcipher
-                            else "seeded" if meta.seeded else "full")
-                    if got != want:
-                        raise wf.WireError(
-                            f"CT_CHUNK {chunk_idx} carries a {got} payload "
-                            f"but the update's declared ct_kind expects "
-                            f"{want}")
-                    self._buffer_wire_chunk(meta, chunk_idx, inner, w_mont)
-                    n_buffered += 1
-                elif ftype == wf.T_TRANSCIPHER_SEED:
-                    if meta is None:
-                        raise wf.WireError(
-                            "TRANSCIPHER_SEED before UPDATE_BEGIN")
-                    if not meta.transcipher:
-                        raise wf.WireError(
-                            "TRANSCIPHER_SEED frame in a non-transcipher "
-                            "update (declared ct_kind is not "
-                            "CT_TRANSCIPHER)")
-                    sct, _ = wf.deserialize(payload, self.ctx, off=0)
-                    if not isinstance(sct, _c.SeededCiphertext):
-                        raise wf.WireError(
-                            "TRANSCIPHER_SEED must nest a seeded-"
-                            f"ciphertext frame, got {type(sct).__name__}")
-                    escrow_key = (meta.cid, meta.round)
-                    if escrow_key not in escrow_prev:
-                        escrow_prev[escrow_key] = self.escrow_seeds.get(
-                            escrow_key, _ESCROW_MISSING)
-                    self.escrow_seeds[escrow_key] = sct
-                elif ftype == wf.T_PLAIN_SEGMENT:
-                    arr, codec, qscale = wf._parse_plain_segment(payload)
-                    ref_shape = (tuple(self._acc_plain.shape)
-                                 if self._acc_plain is not None
-                                 else plain_segments[0][0].shape
-                                 if plain_segments else None)
-                    if ref_shape is not None and arr.shape != ref_shape:
-                        raise wf.WireError(
-                            f"plain segment shape {arr.shape} does not "
-                            f"match this aggregation's {ref_shape}")
-                    plain_segments.append((arr, codec, qscale))
-                elif ftype == wf.T_UPDATE_END:
-                    saw_end = True
-                else:
-                    raise wf.WireError(f"unexpected frame type {ftype:#x} "
-                                       "in update stream")
-            if meta is None or not saw_end:
-                raise wf.WireError("truncated update stream")
-            if len(chunks_seen) != meta.n_chunks:
-                raise wf.WireError(
-                    f"update declared {meta.n_chunks} chunks, "
-                    f"received {len(chunks_seen)}")
+            with obs.span("wire.frames"):
+                for ftype, _, payload in wf.iter_frames(blob):
+                    if ftype == wf.T_UPDATE_BEGIN:
+                        cid, n_samples, rnd, n_chunks, kind = \
+                            _BEGIN.unpack_from(payload, 0)
+                        if kind not in _CT_KINDS:
+                            raise wf.WireError(
+                                f"unknown ct_kind {kind} in UPDATE_BEGIN; "
+                                f"this build implements {_CT_KINDS}")
+                        meta = UpdateMeta(cid, n_samples, rnd, n_chunks,
+                                          kind == CT_SEEDED,
+                                          kind == CT_TRANSCIPHER)
+                    elif ftype == wf.T_CT_CHUNK:
+                        if meta is None:
+                            raise wf.WireError("CT_CHUNK before UPDATE_BEGIN")
+                        (chunk_idx,) = struct.unpack_from("<I", payload, 0)
+                        if chunk_idx >= meta.n_chunks:
+                            raise wf.WireError(
+                                f"chunk index {chunk_idx} >= declared "
+                                f"n_chunks {meta.n_chunks}")
+                        if chunk_idx in chunks_seen:
+                            raise wf.WireError(f"duplicate chunk {chunk_idx}")
+                        chunks_seen.add(chunk_idx)
+                        inner, _ = wf._deserialize(payload, None, off=4)
+                        got = ("masked" if isinstance(inner, _c.MaskedChunk)
+                               else "seeded"
+                               if isinstance(inner, _c.SeededCiphertext)
+                               else "full")
+                        want = ("masked" if meta.transcipher
+                                else "seeded" if meta.seeded else "full")
+                        if got != want:
+                            raise wf.WireError(
+                                f"CT_CHUNK {chunk_idx} carries a {got} "
+                                f"payload but the update's declared ct_kind "
+                                f"expects {want}")
+                        self._buffer_wire_chunk(meta, chunk_idx, inner, w_mont)
+                        n_buffered += 1
+                    elif ftype == wf.T_TRANSCIPHER_SEED:
+                        if meta is None:
+                            raise wf.WireError(
+                                "TRANSCIPHER_SEED before UPDATE_BEGIN")
+                        if not meta.transcipher:
+                            raise wf.WireError(
+                                "TRANSCIPHER_SEED frame in a non-transcipher "
+                                "update (declared ct_kind is not "
+                                "CT_TRANSCIPHER)")
+                        sct, _ = wf._deserialize(payload, self.ctx, off=0)
+                        if not isinstance(sct, _c.SeededCiphertext):
+                            raise wf.WireError(
+                                "TRANSCIPHER_SEED must nest a seeded-"
+                                f"ciphertext frame, got {type(sct).__name__}")
+                        escrow_key = (meta.cid, meta.round)
+                        if escrow_key not in escrow_prev:
+                            escrow_prev[escrow_key] = self.escrow_seeds.get(
+                                escrow_key, _ESCROW_MISSING)
+                        self.escrow_seeds[escrow_key] = sct
+                    elif ftype == wf.T_PLAIN_SEGMENT:
+                        arr, codec, qscale = wf._parse_plain_segment(payload)
+                        ref_shape = (tuple(self._acc_plain.shape)
+                                     if self._acc_plain is not None
+                                     else plain_segments[0][0].shape
+                                     if plain_segments else None)
+                        if ref_shape is not None and arr.shape != ref_shape:
+                            raise wf.WireError(
+                                f"plain segment shape {arr.shape} does not "
+                                f"match this aggregation's {ref_shape}")
+                        plain_segments.append((arr, codec, qscale))
+                    elif ftype == wf.T_UPDATE_END:
+                        saw_end = True
+                    else:
+                        raise wf.WireError(f"unexpected frame type {ftype:#x} "
+                                           "in update stream")
+                if meta is None or not saw_end:
+                    raise wf.WireError("truncated update stream")
+                if len(chunks_seen) != meta.n_chunks:
+                    raise wf.WireError(
+                        f"update declared {meta.n_chunks} chunks, "
+                        f"received {len(chunks_seen)}")
         except Exception as e:
             # rejected update: nothing of it may reach the accumulator
             if n_buffered:
@@ -705,9 +726,10 @@ class StreamIngest:
             if isinstance(e, wf.WireError):
                 raise
             raise wf.WireError(f"malformed update stream: {e!r}") from e
-        for arr, codec, qscale in plain_segments:
-            self._fold_plain(self._plain_to_device(arr, codec, qscale),
-                             weight)
+        with obs.span("wire.h2d", plain=True):
+            for arr, codec, qscale in plain_segments:
+                self._fold_plain(self._plain_to_device(arr, codec, qscale),
+                                 weight)
         self.flush()
         self._m_clients.inc()
         self._m_bytes.inc(len(blob))

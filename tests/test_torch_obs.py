@@ -320,8 +320,8 @@ def test_port_round_trace_loads_in_round_report(tmp_path, registry):
     assert {e["name"] for e in hooked} >= {"he.ntt_fwd", "he.mul_add",
                                            "he.ntt_inv"}
     assert sum(e["name"] == "wire.ingest" for e in events) == 2
-    flushes = [e for e in events if e["name"] == "he.weighted_accum_chunks"
-               and "rows" in e["args"]]
+    flushes = [e for e in events
+               if e["name"] == "he.sharded.weighted_accum_chunks"]
     assert len(flushes) == 2 and all(e["parent"] is not None
                                      for e in flushes)
     ntt = [e for e in hooked if e["name"] == "he.ntt_fwd"]
