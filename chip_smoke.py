@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
 
-Phases 1-12 and six steps between them (2b, 3b, 4b, 8b, 9b, 9c); any failure
+Phases 1-12 and seven steps between them (2b, 2c, 3b, 4b, 8b, 9b, 9c); any failure
 exits non-zero, and without CUDA the script exits non-zero before doing
 anything:
 
@@ -30,6 +30,15 @@ anything:
    every (N, L, B) the in-memory round dispatches its NTTs at; the cache is
    saved to a temporary file, cleared, reloaded and cleared again, so
    phases 3-6 run with an empty cache (the flat NTT kernels);
+2c. mask kernels: the selection mask's split and merge (kernels/mask.py)
+   at the benchmark's update sizes, hubert-xlarge's 945,808,640 and
+   mamba2-370m's 368,252,416 parameters, under a random mask of
+   P_RATIO: the layout's build timed, the split held bit for bit against
+   its plain version (boolean indexing), the merge against the vector and
+   the plain merge, from enc contiguous and as the real part of a
+   complex64 tensor (the decode's output, read at stride 2), with one
+   split and two merge launches a size; both kernels and their plain
+   versions timed beside the bound of their bytes;
 3. in-memory round: the paper's Algorithm 1 round at full width --
    make_context() (N=8192, L=2, delta=2^26), keygen, three clients'
    Qwen1.5-0.5B-sized updates (463,987,712 float32 parameters, top 10%
@@ -187,7 +196,9 @@ memory (its spans time the saves and steps; its kernel hooks synchronize
 each kernel op).
 Each must recover the plaintext FedAvg within 1e-2 (the quickstart's
 bound; phase 7 within THRESHOLD_MAX_ERR) with exactly its expected launch
-counts; the wire round must also
+counts of every kernel its expectation names (the HE kernels everywhere,
+the mask's split and merge where EXPECTED_LAUNCHES names them; all counts
+are printed); the wire round must also
 fold with one accumulate launch per client and hold at most one update's
 11,328 rows, with blob sizes equal to the frame layout's; so must the
 transcipher round.
@@ -226,7 +237,7 @@ from repro_torch.core.ckks import (  # noqa: E402
 from repro_torch.core.secure_agg import (  # noqa: E402
     AggregatorConfig, ProtectedUpdate, SelectiveHEAggregator)
 from repro_torch.kernels import (  # noqa: E402
-    build, he_agg, lift, ntt, ops, pointwise, ref, tune)
+    build, he_agg, lift, mask, ntt, ops, pointwise, ref, tune)
 from repro_torch.fl import (  # noqa: E402
     ClientConfig, FLClient, FLRunConfig, FLTask, ThresholdKeyAuthority)
 from repro_torch.launch import fl_step, mesh as he_mesh  # noqa: E402
@@ -276,20 +287,25 @@ P_RATIO = 0.1
 # smudging noise's ntt_fwd and one mul_add each) and the combine (ntt_inv).
 # With an empty tuning cache no path launches the 4-step kernels; the
 # 4-step round is the in-memory round with every NTT resolved to them.
+# The mask kernels: one split a client's protect, one merge the recover,
+# in the rounds whose expectation names them.
+MASK_ROUND = {"mask_split": N_CLIENTS, "mask_merge": 1}
 EXPECTED_LAUNCHES = {
     "in_memory": {"ntt_fwd": 14, "ntt_inv": 1, "ntt4_fwd": 0, "ntt4_inv": 0,
                   "mul_add": 7, "weighted_sum": 1, "weighted_accum": 0,
-                  "weighted_accum_chunks": 0, "mod_lift": 0},
+                  "weighted_accum_chunks": 0, "mod_lift": 0,
+                  **MASK_ROUND},
     "ntt4_round": {"ntt_fwd": 0, "ntt_inv": 0, "ntt4_fwd": 14, "ntt4_inv": 1,
                    "mul_add": 7, "weighted_sum": 1, "weighted_accum": 0,
-                   "weighted_accum_chunks": 0, "mod_lift": 0},
+                   "weighted_accum_chunks": 0, "mod_lift": 0,
+                   **MASK_ROUND},
     "wire": {"ntt_fwd": 6, "ntt_inv": 1, "ntt4_fwd": 0, "ntt4_inv": 0,
              "mul_add": 4, "weighted_sum": 0, "weighted_accum": 0,
-             "weighted_accum_chunks": 3, "mod_lift": 0},
+             "weighted_accum_chunks": 3, "mod_lift": 0, **MASK_ROUND},
     "transcipher": {"ntt_fwd": 12, "ntt_inv": 1, "ntt4_fwd": 0,
                     "ntt4_inv": 0, "mul_add": 7, "weighted_sum": 0,
                     "weighted_accum": 0, "weighted_accum_chunks": 3,
-                    "mod_lift": 6},
+                    "mod_lift": 6, **MASK_ROUND},
     "sharded": {"ntt_fwd": 16, "ntt_inv": 4, "ntt4_fwd": 0, "ntt4_inv": 0,
                 "mul_add": 8, "weighted_sum": 8, "weighted_accum": 12,
                 "weighted_accum_chunks": 12, "mod_lift": 0},
@@ -302,7 +318,7 @@ EXPECTED_LAUNCHES = {
     "model_round": {"ntt_fwd": 14, "ntt_inv": 1, "ntt4_fwd": 0,
                     "ntt4_inv": 0, "mul_add": 7, "weighted_sum": 1,
                     "weighted_accum": 0, "weighted_accum_chunks": 0,
-                    "mod_lift": 0},
+                    "mod_lift": 0, **MASK_ROUND},
 }
 # the NTT dispatches of the in-memory round, (op, B) at N=8192, L=2, read
 # off core/ckks/cipher.py: keygen's s and e are [L, N] (B = 1), each
@@ -357,6 +373,11 @@ DECODE_MAX_ERR = 1e-3
 FL_ROUNDS = 2
 SSM_ARCH, SSM_SEQ, SSM_PARAMS = "mamba2-370m", 512, 368_252_416
 HYBRID_ARCH, HYBRID_SEQ, HYBRID_PARAMS = "zamba2-7b", 512, 6_674_390_608
+
+# Phase 2c: the benchmark's update sizes (chipbench/configs), the sims'
+# top-p mask replaced by a random one of the same share.
+MASK_SIZES = (("hubert-xlarge", 945_808_640), ("mamba2-370m", 368_252_416))
+MASK_SOURCE = "src/repro_torch/kernels/csrc/mask.cu"
 
 # Published H100 SXM peak (NVIDIA data sheet): HBM3 3.35 TB/s.  Integer
 # work is counted per pipe, each pipe at 64 lanes an SM (Hopper white
@@ -624,6 +645,86 @@ def check_kernels(ctx, gen, n_rows, int_rate):
     check_ntt4_configs(ctx, x, rows)
     log("kernels: " + ", ".join(rows))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: the selection mask's split and merge at the benchmark's sizes
+# ---------------------------------------------------------------------------
+
+
+def check_mask_kernels(seed, slots):
+    """Returns ({name: row of the kernels JSON line}, the phase's launch
+    counts); a row's times are at the first of MASK_SIZES, and
+    row["by_size"] holds every size's."""
+    dev = torch.device("cuda")
+    rows, launched = {}, {"mask_split": 0, "mask_merge": 0}
+    for label, p in MASK_SIZES:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        part = packing.make_partition(
+            torch.rand(p, generator=gen, device=dev) < P_RATIO, slots)
+        vec = torch.randn(p, generator=gen, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lay = part.layout(dev)
+        torch.cuda.synchronize()
+        layout_ms = (time.perf_counter() - t) * 1e3
+        ops.reset_launch_counts()
+        enc, plain = mask.mask_split(vec, part)
+        want_enc, want_plain = mask.split_plain(vec, part)
+        if not (torch.equal(enc, want_enc) and torch.equal(plain,
+                                                           want_plain)):
+            raise AssertionError(f"mask_split at {label}: kernel differs "
+                                 "from its plain version")
+        del want_enc, want_plain
+        # the decode's output is the real part of a complex64 tensor
+        real = torch.complex(enc, torch.zeros_like(enc)).real
+        for what, e in (("contiguous", enc), ("stride 2", real)):
+            out = mask.mask_merge(e, plain, part)
+            if not (torch.equal(out, vec) and torch.equal(
+                    out, mask.merge_plain(e, plain, part))):
+                raise AssertionError(f"mask_merge at {label} from {what} "
+                                     "enc: kernel differs")
+            del out
+        counts = ops.launch_counts()
+        check_launches(f"mask_kernels {label}", counts,
+                       {"mask_split": 1, "mask_merge": 2})
+        for k in launched:
+            launched[k] += counts[k]
+        # bytes: the vector once, the layout once, the encrypted part (with
+        # the split's pad) and the plain part once
+        layout_bytes = 4 * lay.words.numel() + 8 * lay.tile_enc.numel()
+        cases = {
+            "mask_split": (lambda: mask.mask_split(vec, part),
+                           lambda: mask.split_plain(vec, part),
+                           4 * (p + part.n_enc_padded + part.n_plain)
+                           + layout_bytes),
+            "mask_merge": (lambda: mask.mask_merge(real, plain, part),
+                           lambda: mask.merge_plain(real, plain, part),
+                           4 * (p + part.n_enc + part.n_plain)
+                           + layout_bytes),
+        }
+        for name, (kern, plain_fn, nbytes) in cases.items():
+            ms = time_ms(kern, 10)
+            plain_ms = time_ms(plain_fn, 2)
+            bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            size = {"p": p, "n_enc": part.n_enc, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "layout_ms": layout_ms}
+            row = rows.setdefault(name, {
+                "name": name, "route": "cuda", "source": MASK_SOURCE,
+                "replaces": None, "launches": None, "max_abs_err": 0,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "bound_pipe": "bytes",
+                "library_ms": None, "by_size": {}})
+            row["by_size"][label] = size
+            log(f"kernel {name} at {label} (P = {p}, {part.n_enc} "
+                f"encrypted): exact  ms={ms:.4f}  plain_ms={plain_ms:.4f}  "
+                f"bound_ms={bound_ms:.4f} (bytes: {nbytes / 1e9:.3f} GB)  "
+                f"layout build {layout_ms:.1f} ms")
+        del part, lay, vec, enc, plain, real, cases
+        torch.cuda.empty_cache()
+    log("mask kernels: " + ", ".join(rows))
+    return rows, launched
 
 
 def check_ntt4_configs(ctx, x, rows):
@@ -924,10 +1025,12 @@ def check_recovered(what, recovered, expect, bound=MAX_ERR,
 
 
 def check_launches(what, counts, want=None):
+    """Every count the expectation names must be exact; all are printed."""
     want = EXPECTED_LAUNCHES[what] if want is None else want
     log(f"{what} launches: {json.dumps(counts)}")
-    if counts != want:
-        raise AssertionError(f"{what} launch counts {counts} != {want}")
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what} launch counts {got} != {want}")
 
 
 def report_times(what, times, t0):
@@ -1708,15 +1811,17 @@ def threshold_round(seed, st, trace_path):
 
 
 def check_threshold_obs(trace_path, counts, hooked):
-    """One he.<op> span per counted launch, the registry's launch series
-    equal to the counts, and the trace loads in tools/round_report.py."""
+    """One he.<op> span per counted launch of an HE op (the ops the hooks
+    time; the mask's split and merge have their he.split / he.merge spans),
+    the registry's launch series equal to those counts, and the trace loads
+    in tools/round_report.py."""
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "tools"))
     import round_report
 
     events = round_report.parse_trace(trace_path)
     roots = round_report.build_tree(events)
-    want = {op: n for op, n in counts.items() if n}
+    want = {op: n for op, n in counts.items() if n and op in KERNELS}
     spans = kernel_spans(events)
     if spans != want:
         raise AssertionError(f"threshold trace: he.<op> spans {spans} != "
@@ -2076,7 +2181,8 @@ def fl_stage_launches(n_params, slots, n_clients=N_CLIENTS):
     in_memory = launches(ntt_fwd=4 * n_clients, mul_add=2 * n_clients + 1,
                          weighted_sum=1, ntt_inv=1)
     return {"keys": launches(ntt_fwd=2), "mask": mask, "blocks": blocks,
-            "rows": rows, "wire_round": EXPECTED_LAUNCHES["wire"],
+            "rows": rows,
+            "wire_round": launches(**EXPECTED_LAUNCHES["wire"]),
             "in_memory_round": in_memory}
 
 
@@ -2949,13 +3055,16 @@ def main():
     gen = torch.Generator(device=ctx.device).manual_seed(args.seed)
     rows = check_kernels(ctx, gen, n_ciphertexts(ctx.slots), int_rate)
     check_small_round_against_cpu(ctx, args.seed)
+    slots = ctx.slots
     del ctx, gen
     torch.cuda.empty_cache()
+    mask_rows, mask_launches = check_mask_kernels(args.seed, slots)
+    rows.update(mask_rows)
 
     best4 = tuner_sweep(args.seed)
     torch.cuda.empty_cache()
 
-    by_path = {}
+    by_path = {"mask_kernels": mask_launches}
     with traced("in_memory"):
         by_path["in_memory"], state = in_memory_round(args.seed)
     by_path["ntt4_round"] = ntt4_round(args.seed, state, best4)
@@ -3038,8 +3147,9 @@ def main():
     plc["s"] = time.perf_counter() - t
     by_path["placed"] = launches()  # counted in placed_phase: none
     for name, row in rows.items():
-        row["launches"] = sum(c[name] for c in by_path.values())
-        row["launches_by_path"] = {p: c[name] for p, c in by_path.items()}
+        row["launches"] = sum(c.get(name, 0) for c in by_path.values())
+        row["launches_by_path"] = {p: c.get(name, 0)
+                                   for p, c in by_path.items()}
 
     log(f"chip_smoke total: {time.perf_counter() - t_start:.1f} s")
     log(f"threshold round ({N_PARTIES} parties, Qwen1.5-0.5B width, obs "

@@ -4,8 +4,12 @@ The FL/HE boundary works on one flat float32 vector per model.  Parameters
 are nested dicts (or lists/tuples) of tensors, flattened in JAX's pytree
 order, where a dict's leaves come in sorted-key order: a mask then means the
 same parameters in both packages.  The mask partition is kept as a boolean
-tensor on the vector's device; splitting and merging are masked gathers and
-scatters there.
+tensor.  Splitting and merging read, on a CUDA vector, the partition's
+per-device layout (the mask packed to 32-bit words and the encrypted count
+before each tile, `kernels/mask.py`), built at the first split or merge on
+that device and cached on the partition; each is then one kernel launch
+that reads every element once and writes it once, with no index array and
+no host sync.  On a CPU vector they are boolean gathers and scatters.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import math
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels import mask as _mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +124,9 @@ class MaskPartition:
     mask: torch.Tensor       # bool[P]
     n_enc: int
     slots: int
+    # device -> kernels.mask.MaskLayout, built at first use
+    _layouts: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
 
     @property
     def n_total(self) -> int:
@@ -148,6 +156,17 @@ class MaskPartition:
     def ratio(self) -> float:
         return self.n_enc / max(1, self.n_total)
 
+    def layout(self, device) -> _mask.MaskLayout:
+        """The split and merge kernels' layout of the mask on `device`,
+        built from the mask there at the first call and kept (two threads
+        that race here build the same layout, and either is kept)."""
+        device = torch.device(device)
+        lay = self._layouts.get(device)
+        if lay is None:
+            lay = _mask.build_layout(self.mask.to(device))
+            self._layouts[device] = lay
+        return lay
+
 
 def make_partition(mask, slots: int) -> MaskPartition:
     mask = torch.as_tensor(mask, dtype=torch.bool).reshape(-1)
@@ -159,20 +178,11 @@ def split_by_mask(vec, part: MaskPartition):
     plain float32[n_plain]), under an `he.split` span timed on the vector's
     device."""
     with obs.span("he.split", device=vec.device):
-        mask = part.mask.to(vec.device)
-        enc = torch.zeros(part.n_enc_padded, dtype=vec.dtype,
-                          device=vec.device)
-        enc[: part.n_enc] = vec[mask]
-        return enc.reshape(part.n_chunks, part.slots), vec[~mask]
+        return _mask.mask_split(vec, part)
 
 
 def merge_by_mask(enc_chunks, plain, part: MaskPartition):
     """Inverse of split_by_mask -> float32[P], under an `he.merge` span
     timed on the plain part's device."""
     with obs.span("he.merge", device=plain.device):
-        mask = part.mask.to(plain.device)
-        out = torch.zeros(part.n_total, dtype=torch.float32,
-                          device=plain.device)
-        out[mask] = enc_chunks.reshape(-1)[: part.n_enc].to(torch.float32)
-        out[~mask] = plain.to(torch.float32)
-        return out
+        return _mask.mask_merge(enc_chunks, plain, part)

@@ -25,7 +25,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("ntt", "ntt4", "pointwise", "he_agg", "lift")
+SOURCES = ("ntt", "ntt4", "pointwise", "he_agg", "lift", "mask")
 # -split-compile=0 runs nvcc's optimizer on every CPU, so that ntt4.cu's 26
 # kernels build within ntt.cu's time; the other sources' SASS is the same
 # with it as without
@@ -60,6 +60,10 @@ SIGNATURES = {
     },
     "lift": {
         "mod_lift_launch": (_P, _P, _P, _LL, _I, _I, _P),
+    },
+    "mask": {
+        "mask_split_launch": (_P, _P, _P, _LL, _LL, _LL, _P, _P, _P),
+        "mask_merge_launch": (_P, _P, _LL, _P, _P, _P, _LL, _P),
     },
 }
 

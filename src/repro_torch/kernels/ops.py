@@ -16,7 +16,9 @@ dispatch's (op, N, L, B, device type): a miss runs the flat kernel, an
 "ntt4" entry the 4-step kernel at the entry's split, radix and block_b,
 with the same bits either way.  The limb-wise helpers (`mod_add`,
 `mod_sub`, `mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of
-their own and are plain torch ops.
+their own and are plain torch ops.  The selection mask's split and merge
+(`kernels/mask.py`) are called from `core/packing.py`, not from here;
+`KERNELS` lists them so that `launch_counts()` counts them too.
 
 While obs is enabled (`obs.configure(enabled=True)`), every op with a kernel
 goes through `obs.timed_kernel`: synchronized before and after, timed,
@@ -34,6 +36,7 @@ from repro_torch import obs as _obs
 from repro_torch.core.ckks import params as _params
 from repro_torch.kernels import he_agg as _he_agg
 from repro_torch.kernels import lift as _lift
+from repro_torch.kernels import mask as _mask
 from repro_torch.kernels import ntt as _ntt
 from repro_torch.kernels import pointwise as _pointwise
 from repro_torch.kernels import ref as _ref
@@ -50,6 +53,8 @@ KERNELS = {
     "weighted_accum": _he_agg.he_weighted_accum_fused,
     "weighted_accum_chunks": _he_agg.he_weighted_accum_chunks_fused,
     "mod_lift": _lift.mod_lift_fused,
+    "mask_split": _mask.mask_split,
+    "mask_merge": _mask.mask_merge,
 }
 
 

@@ -33,8 +33,9 @@ from repro.kernels import ref as jref
 
 from repro_torch import interop
 from repro_torch.core.ckks import params as tparams
-from repro_torch.kernels import (build, he_agg, lift, ntt, ops, pointwise,
-                                 ref)
+from repro_torch.core import packing
+from repro_torch.kernels import (build, he_agg, lift, mask, ntt, ops,
+                                 pointwise, ref)
 
 import gold
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -312,12 +313,15 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     ops.weighted_accum_chunks(x, x, torch.ones(2, 2, dtype=torch.int32),
                               tctx)
     ops.mod_lift(x[:, 0], 2, tctx)
+    part = packing.make_partition(torch.arange(300) % 3 == 0, 128)
+    mask.mask_merge(*mask.mask_split(torch.randn(300), part), part)
     assert ops.launch_counts() == {"ntt_fwd": 0, "ntt_inv": 0,
                                    "ntt4_fwd": 0, "ntt4_inv": 0,
                                    "mul_add": 0, "weighted_sum": 0,
                                    "weighted_accum": 0,
                                    "weighted_accum_chunks": 0,
-                                   "mod_lift": 0}
+                                   "mod_lift": 0, "mask_split": 0,
+                                   "mask_merge": 0}
 
 
 @pytest.mark.parametrize("op", ["ntt_fwd", "ntt_inv", "mul_add",
