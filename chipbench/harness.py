@@ -20,6 +20,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -104,10 +105,14 @@ class Run:
         # spans and the program's obs spans, naming the device's idle gaps
         self.host_spans: list[tuple[str, float, float]] = []
         self.t0 = None                     # the window's start, same clock
+        self.wall0_ns = None               # the window's start, wall clock
         self.counters: dict = {}
         self.geometry: dict = {}
         self.units: list[float] = []       # seconds of each round or turn
         self.window_s = None
+        self.record = None                 # what a traced window's readers read
+        # seconds of the profiler's stop, its events' listing and reading
+        self.trace_s = None
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -142,77 +147,104 @@ class Run:
             self.sync()
             self.window_s = time.perf_counter() - t0
             return None
+        from torch._C._profiler import _ExperimentalConfig
         from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU]
+        # the device's activity alone, with no links from host operators to
+        # kernels: the host's operators, a few for each kernel, would take
+        # the profiler's stop and the reading of its events several times
+        # as long, and no reader reads them
         if self.device.type == "cuda":
-            acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            with torch.profiler.record_function("bench.window"):
-                self.t0 = time.perf_counter()
-                body(self)
-                self.sync()
-                self.window_s = time.perf_counter() - self.t0
-        return summarize_trace(prof, self)
+            acts = [ProfilerActivity.CUDA]
+            extra = _ExperimentalConfig(disable_external_correlation=True)
+        else:
+            acts, extra = [ProfilerActivity.CPU], None
+        with profile(activities=acts, experimental_config=extra) as prof:
+            self.wall0_ns = time.time_ns()
+            self.t0 = time.perf_counter()
+            body(self)
+            self.sync()
+            self.window_s = time.perf_counter() - self.t0
+        t = time.perf_counter()
+        events = prof.profiler.kineto_results.events()
+        t1 = time.perf_counter()
+        summary = summarize_trace(events, self)
+        self.trace_s = (t - self.t0 - self.window_s, t1 - t,
+                        time.perf_counter() - t1)
+        return summary
 
 
-def _union(intervals, lo, hi) -> tuple[float, list]:
-    """(covered length, gaps [(start, end)]) of intervals within [lo, hi]."""
-    busy, gaps, end = 0.0, [], lo
-    for a, b in sorted(intervals):
-        a, b = max(a, lo), min(b, hi)
-        if b <= a:
-            continue
-        if a > end:
-            gaps.append((end, a))
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
+def _union(starts, ends, lo, hi) -> tuple[float, list]:
+    """(covered length, gaps [(start, end)]) of the intervals [starts[i],
+    ends[i]] within [lo, hi]."""
+    a = np.clip(np.asarray(starts, dtype=np.float64), lo, hi)
+    b = np.clip(np.asarray(ends, dtype=np.float64), lo, hi)
+    keep = b > a
+    order = np.argsort(a[keep], kind="stable")
+    a, b = a[keep][order], b[keep][order]
+    if not len(a):
+        return 0.0, [(lo, hi)] if hi > lo else []
+    # the end of all that came before each interval
+    before = np.concatenate(([lo], np.maximum.accumulate(b)[:-1]))
+    busy = float(np.sum(b - np.maximum(a, before).clip(max=b)))
+    gap = a > before
+    gaps = list(zip(before[gap].tolist(), a[gap].tolist()))
+    end = float(np.max(b))
     if hi > end:
         gaps.append((end, hi))
     return busy, gaps
 
 
-def summarize_trace(prof, run: Run) -> dict:
+def summarize_trace(events, run: Run) -> dict:
     """Device time by kernel name, the device's busy time within the
     window (the union of its events' intervals), and the idle gaps named by
     the innermost harness or program span the host was in at their middle.
-    The profiler's `bench.window` range ties its clock to the host's.
+    The profiler's timestamps are on the wall clock (nanoseconds since the
+    epoch), so the window is where `time.time_ns()` put its start.
 
-    It reads the profiler's raw events: building its FunctionEvents from
-    them takes a minute for a sim window, reading them a few seconds."""
+    It reads the profiler's raw events (`kineto_results.events()`), the
+    device's hundreds of thousands of a training window one call each, a
+    name judged once: building its FunctionEvents from them would take
+    minutes."""
     from torch.autograd import DeviceType
 
-    res = prof.profiler.kineto_results
-    start_ns = res.trace_start_ns()
-    dev_iv, kernels, window = [], {}, None
-    for e in res.events():
-        if e.is_hidden_event():
+    cuda = DeviceType.CUDA
+    starts, durs, names, skip = [], [], [], {}
+    for e in events:
+        if e.device_type() != cuda:
             continue
         name = e.name()
-        a = (e.start_ns() - start_ns) / 1e3
-        b = a + e.duration_ns() / 1e3
-        if e.device_type() == DeviceType.CUDA:
-            if e.is_user_annotation() or name.startswith(SPAN_PREFIXES):
-                continue        # a span's range on the device timeline
-            dev_iv.append((a, b))
-            n, s = kernels.get(name, (0, 0.0))
-            kernels[name] = (n + 1, s + (b - a) / 1e6)
-        elif name == "bench.window":
-            window = (a, b)
-    if window is None:
-        raise RuntimeError("the profiler lost the window's range")
-    busy_us, gaps = _union(dev_iv, *window)
-    to_us = lambda t: window[0] + (t - run.t0) * 1e6  # noqa: E731
-    host = sorted(((to_us(a), to_us(b), n) for n, a, b in run.host_spans),
+        out = skip.get(name)
+        if out is None:     # a span's range on the device timeline, or hidden
+            out = skip[name] = (name.startswith(SPAN_PREFIXES)
+                                or e.is_user_annotation()
+                                or e.is_hidden_event())
+        if not out:
+            starts.append(e.start_ns())
+            durs.append(e.duration_ns())
+            names.append(name)
+    a = (np.asarray(starts, dtype=np.int64) - run.wall0_ns) / 1e3
+    d = np.asarray(durs, dtype=np.float64) / 1e3
+    kernels: dict = {}
+    for name, us in zip(names, d.tolist()):
+        n, sec = kernels.get(name, (0, 0.0))
+        kernels[name] = (n + 1, sec + us / 1e6)
+    window = (0.0, run.window_s * 1e6)
+    if len(a) and not np.any((a < window[1]) & (a + d > 0)):
+        raise RuntimeError("no device event lies in the window: the "
+                           "profiler's clock is not the wall clock")
+    busy_us, gaps = _union(a, a + d, *window)
+    host = sorted((((t0 - run.t0) * 1e6, (t1 - run.t0) * 1e6, n)
+                   for n, t0, t1 in run.host_spans),
                   key=lambda h: h[1] - h[0])       # innermost first
     idle: dict = {}
-    for a, b in gaps:
-        mid = (a + b) / 2
-        label = next((n for s, e, n in host if s <= mid <= e),
+    for g0, g1 in gaps:
+        mid = (g0 + g1) / 2
+        label = next((n for h0, h1, n in host if h0 <= mid <= h1),
                      "bench.window")
-        idle[label] = idle.get(label, 0.0) + (b - a) / 1e6
+        idle[label] = idle.get(label, 0.0) + (g1 - g0) / 1e6
     return {"busy_s": busy_us / 1e6, "kernels": kernels,
-            "idle": idle, "n_device_events": len(dev_iv)}
+            "idle": idle, "n_device_events": len(a)}
 
 
 def top(d: dict, n: int = 10) -> list:
@@ -237,17 +269,23 @@ def device_block(run: Run, trace: dict | None) -> dict:
 
 def record_of(run: Run, trace: dict | None) -> dict:
     """What the per-layer readers read: the run's spans, counters,
-    geometry, round or turn times, window and trace summary."""
+    geometry, round or turn times, window and trace summary, and of a
+    traced window the program's own events (its tracer's spans and instant
+    events, device times resolved: `obs.collect()`)."""
+    events = None
+    if trace is not None:
+        from repro_torch import obs
+
+        events = obs.collect()
     return {"spans": run.spans, "counters": run.counters,
             "geometry": run.geometry, "units": run.units,
             "window_s": run.window_s, "trace": trace,
-            "device": str(run.device)}
+            "device": str(run.device), "events": events}
 
 
-def per_layer(run: Run, names, trace: dict) -> dict:
-    """Each named reader's value; a reader that finds nothing returns None
-    and its metric is left out."""
-    record = record_of(run, trace)
+def per_layer(record: dict, names) -> dict:
+    """Each named reader's value on the record; a reader that finds
+    nothing returns None and its metric is left out."""
     out = {}
     for name in names:
         reader = metric_reader(name)

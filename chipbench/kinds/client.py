@@ -25,11 +25,19 @@ from repro_torch.wire import compress, stream
 from repro_torch.wire import format as wf
 
 METRICS = ("client_s",)
+NUMBERS = ("leaves_wrong", "rec_enc_err", "rec_plain_err", "uplink_len_err",
+           "uplink_layout_err", "uplink_plain_err", "uplink_enc_err")
+# lower-precision controls: the CKKS scale 2**20 below the stated 2**26;
+# the i8 plain codec below the stated f16; the reference's FedAvg in
+# bfloat16 in the place of the recovered model (float32 plain part)
+CONTROLS = {"delta20": {"delta_bits": 20}, "i8": {"plain_codec": "i8"},
+            "bf16": {"substitute": "bfloat16"}}
 CLIENT_ID = 7
 
 
 class Cell:
-    def __init__(self, cfg, traffic, run, delta_bits=None, plain_codec=None):
+    def __init__(self, cfg, traffic, run, delta_bits=None, plain_codec=None,
+                 substitute=None):
         self.cfg, self.traffic, self.run = cfg, traffic, run
         self.ck = common.ckks_params(cfg, delta_bits)
         self.p = float(traffic["p_ratio"])
@@ -42,7 +50,8 @@ class Cell:
         # the lower-precision control for the downlink's float32 plain
         # part: the reference's FedAvg in this dtype in the place of the
         # recovered model
-        self.substitute = None
+        self.substitute = (getattr(torch, substitute) if substitute
+                           else None)
 
     def _protect(self, rnd, i):
         run = self.run

@@ -36,6 +36,11 @@ from repro_torch.wire import compress, stream
 from repro_torch.wire import format as wf
 
 METRICS = ("agg_rate",)
+NUMBERS = ("downlink_len_err", "downlink_layout_err", "folded_err",
+           "plain_err", "enc_err")
+# lower-precision controls: the CKKS scale 2**20 below the stated 2**26;
+# the i8 plain codec below the stated f16
+CONTROLS = {"delta20": {"delta_bits": 20}, "i8": {"plain_codec": "i8"}}
 POLL_S = 0.001
 MIN_ROUNDS = 2
 

@@ -15,16 +15,24 @@ the window.
 """
 from __future__ import annotations
 
+import torch
+
 import inputs
 from harness import quantile
 from kinds import common
 from reference import fedavg, judge
 
 METRICS = ("round_s", "round_p95_s")
+NUMBERS = ("leaves_wrong", "rec_enc_err", "rec_plain_err", "enc_err")
+# lower-precision controls: the CKKS scale 2**20 below the stated 2**26;
+# the reference's FedAvg in bfloat16 in the place of the recovered model,
+# whose plain part is float32
+CONTROLS = {"delta20": {"delta_bits": 20},
+            "bf16": {"substitute": "bfloat16"}}
 
 
 class Cell:
-    def __init__(self, cfg, traffic, run, delta_bits=None):
+    def __init__(self, cfg, traffic, run, delta_bits=None, substitute=None):
         self.cfg, self.traffic, self.run = cfg, traffic, run
         self.ck = common.ckks_params(cfg, delta_bits)
         self.k = int(traffic["clients"])
@@ -35,7 +43,8 @@ class Cell:
         self.kept = None
         # the lower-precision control puts the reference's FedAvg, computed
         # in this dtype, in the place of the recovered model
-        self.substitute = None
+        self.substitute = (getattr(torch, substitute) if substitute
+                           else None)
 
     def setup(self):
         run = self.run

@@ -1,8 +1,9 @@
 """What the readers of the program's own stage spans share.  They read the
-program's tracer (`repro_torch.obs`) after a traced window: its spans and
+program's tracer (`repro_torch.obs`) of a traced window: its spans and
 instant events record while torch.profiler runs, so every cell's traced
-window holds them.  A record of an untraced run, or a program whose tracer
-has no `collect` or none of the stage's spans, gives None."""
+window holds them, and the run's record keeps them (`harness.record_of`).
+A record of an untraced run, or a program whose tracer has no `collect` or
+none of the stage's spans, gives None."""
 from __future__ import annotations
 
 # ts and dur are rounded to 1e-3 us
@@ -10,10 +11,13 @@ _EPS_US = 1e-2
 
 
 def events(record):
-    """The program's events of the traced window, device times resolved;
-    None for an untraced record or a program without `obs.collect`."""
+    """The program's events of the traced window, device times resolved:
+    the record's own where it keeps them, else the tracer's now; None for
+    an untraced record or a program without `obs.collect`."""
     if record.get("trace") is None:
         return None
+    if record.get("events") is not None:
+        return record["events"]
     from repro_torch import obs
 
     collect = getattr(obs, "collect", None)

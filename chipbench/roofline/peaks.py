@@ -1,7 +1,9 @@
 """The card's peaks, and the least time of a piece of work.
 
 HBM bandwidth is NVIDIA's published figure for the H100 SXM (80 GB HBM3,
-3.35 TB/s at the full 700 W).  Integer work is counted per pipe: each pipe
+3.35 TB/s at the full 700 W), and so is its dense bfloat16 tensor-core
+rate (989.4 TFLOP/s without sparsity), the peak of a training step's model
+FLOPs.  Integer work is counted per pipe: each pipe
 has 64 lanes an SM (Hopper white paper), times the SM count and the card's
 maximum SM clock, both read off the card.  The multiply pipe takes 32-bit
 multiplies and multiply-adds; the ALU pipe adds, compares, shifts, logic
@@ -13,6 +15,7 @@ from __future__ import annotations
 import subprocess
 
 HBM_BYTES_PER_S = 3.35e12
+BF16_DENSE_FLOPS = 989.4e12
 INT_LANES_PER_SM = 64
 
 # (multiplies, ALU instructions) of one operation on 32-bit residues: a

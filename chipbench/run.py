@@ -24,6 +24,7 @@ T0 = time.perf_counter()
 import argparse  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import pathlib  # noqa: E402
 import sys  # noqa: E402
 
@@ -48,17 +49,15 @@ def parse(argv):
     return ap.parse_args(argv)
 
 
-def execute(workload, cfg, traffic, run, cell_kwargs=None,
-            substitute=None) -> tuple[dict, dict | None]:
-    """Set up, measure, check.  Returns (the result line's fields, with the
-    compared numbers under "numbers" and not yet judged; the trace summary
-    of a traced window, else None).  `cell_kwargs` and `substitute` are the
-    controls' switches (calibrate.py)."""
+def execute(workload, cfg, traffic, run, cell_kwargs=None) -> dict:
+    """Set up, measure, check.  Returns the result line's fields, with the
+    compared numbers under "numbers" and not yet judged; a traced run keeps
+    what its readers read in `run.record`.  `cell_kwargs` switch on a
+    lower-precision control of the cell's kind (its CONTROLS;
+    calibrate.py)."""
     bench = harness.benchmark()
     kind = harness.kind(traffic)
     cell = kind.Cell(cfg, traffic, run, **(cell_kwargs or {}))
-    if substitute is not None:
-        cell.substitute = substitute
     cell.setup()
     if run.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(run.device)
@@ -75,7 +74,8 @@ def execute(workload, cfg, traffic, run, cell_kwargs=None,
         names = [m["name"] for m in bench["per_layer"]
                  if workload["name"] in m.get("workloads",
                                               [workload["name"]])]
-        out["metrics"] = harness.per_layer(run, names, trace)
+        run.record = harness.record_of(run, trace)
+        out["metrics"] = harness.per_layer(run.record, names)
         out["breakdown"] = {
             "device_ops": harness.top({k: s for k, (_, s) in
                                        trace["kernels"].items()}),
@@ -93,10 +93,13 @@ def execute(workload, cfg, traffic, run, cell_kwargs=None,
         torch.cuda.empty_cache()
     t = time.perf_counter()
     out["numbers"] = cell.check()
+    traced = (f", profiler stop {run.trace_s[0]:.3f} s, trace listing "
+              f"{run.trace_s[1]:.3f} s, trace read {run.trace_s[2]:.3f} s"
+              if run.trace_s else "")
     print(f"setup {setup_s:.3f} s, window {run.window_s:.3f} s "
-          f"({len(run.units)} rounds or turns), check "
+          f"({len(run.units)} rounds or turns){traced}, check "
           f"{time.perf_counter() - t:.3f} s", file=sys.stderr)
-    return out, trace
+    return out
 
 
 def judge(numbers: dict, limits: dict) -> tuple[bool, dict]:
@@ -121,7 +124,7 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 3
     run = harness.Run(args.seed, args.seconds, bool(args.trace), "cuda")
-    out, _ = execute(workload, cfg, traffic, run)
+    out = execute(workload, cfg, traffic, run)
     found = harness.forbidden_modules()
     if found:
         print(f"loaded after the window: {', '.join(found)}",
@@ -138,4 +141,9 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    rc = main()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # no teardown of the interpreter and the card's context: seconds for
+    # tens of GB on the card, and this process started no other
+    os._exit(rc)

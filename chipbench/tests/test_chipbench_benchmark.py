@@ -18,11 +18,13 @@ sys.path.insert(0, str(BENCH))
 import harness  # noqa: E402
 import inputs  # noqa: E402
 from roofline import (mul_add, ntt_fwd, peaks, rounds,  # noqa: E402
-                      weighted_accum_chunks)
+                      train, weighted_accum_chunks)
 
 B = harness.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+# the numbers of the first benchmark's kinds, pinned: a kind declares its
+# own (`NUMBERS`), and these may not lose one
 KIND_NUMBERS = {
     "sim": {"leaves_wrong", "rec_enc_err", "rec_plain_err", "enc_err"},
     "service": {"downlink_len_err", "downlink_layout_err", "folded_err",
@@ -68,7 +70,9 @@ def test_workload_resolves(w):
     traffic = harness.load_json(BENCH / "traffic" / f"{w['traffic']}.json")
     kind = harness.kind(traffic)
     assert "limits" not in traffic
-    assert set(harness.limits(w["name"])) == KIND_NUMBERS[traffic["kind"]]
+    assert set(harness.limits(w["name"])) == set(kind.NUMBERS)
+    assert kind.CONTROLS and all(isinstance(kw, dict)
+                                 for kw in kind.CONTROLS.values())
     e2e = {m["name"] for m in B["end_to_end"]
            if w["name"] in m.get("workloads", [w["name"]])}
     assert "setup_s" in e2e and set(kind.METRICS) <= e2e
@@ -79,6 +83,36 @@ def test_workload_resolves(w):
     for m in layers:
         assert m["moves"] in e2e
     assert len(w["why"]) <= 200
+
+
+@pytest.mark.parametrize("name", sorted(KIND_NUMBERS))
+def test_the_first_kinds_numbers_are_pinned(name):
+    kind = harness.kind({"kind": name})
+    assert set(kind.NUMBERS) == KIND_NUMBERS[name]
+    assert len(kind.NUMBERS) == len(set(kind.NUMBERS))
+
+
+def _kind_of(w):
+    return harness.kind(harness.load_json(BENCH / "traffic"
+                                          / f"{w['traffic']}.json"))
+
+
+MODEL_CELLS = [w for w in B["workloads"]
+               if hasattr(_kind_of(w), "port_config")]
+
+
+@pytest.mark.parametrize("w", MODEL_CELLS, ids=lambda w: w["name"])
+def test_a_model_cells_configuration_is_the_ports_tree(w):
+    """A kind that builds the port's model checks at set-up that its tree
+    has the configuration's leaves; here on the meta device."""
+    kind = _kind_of(w)
+    from repro_torch import models
+
+    cfg = harness.load_json(BENCH / "configs" / f"{w['config']}.json")
+    tree = models.build_model(kind.port_config(cfg),
+                              device="cpu").init_abstract()
+    assert kind.tree_shapes(tree) == [(p, s) for p, s, _, _ in
+                                      inputs.leaves(cfg)]
 
 
 def test_limits_are_each_cells_own():
@@ -183,3 +217,20 @@ def test_round_counts_are_bounded_by_their_bytes():
     assert rounds.sim_round(g, CARD) >= want / peaks.HBM_BYTES_PER_S
     assert rounds.service_round(g, CARD) > 0
     assert rounds.client_turn(g, CARD) > 0
+
+
+def test_training_flops_are_the_shapes_arithmetic():
+    """mamba2-370m at 32 x 2,048 tokens: 6 x (48 layers' projections + the
+    tied unembedding) x tokens, and the SSD's four matmuls x 3."""
+    cfg = harness.load_json(BENCH / "configs" / "mamba2-370m.json")
+    g = {"leaves": [[lf["path"], lf["shape"]] for lf in cfg["leaves"]],
+         "rows": 32, "seq": 2048, "ssm_chunk": 256, "family": "ssm"}
+    d, din, n, h, p, q = 1024, 2048, 128, 32, 64, 256
+    dense = 48 * (d * (2 * din + 2 * n + h) + din * d) + 50_304 * d
+    ssd = 48 * (2 * q * n + 2 * q * h * p + 4 * n * h * p)
+    tokens = 32 * 2048
+    assert train.step_flops(g) == 6.0 * dense * tokens + 3.0 * ssd * tokens
+    assert math.isclose(train.step_flops(g) / 1e12, 164.98, rel_tol=1e-4)
+    assert peaks.BF16_DENSE_FLOPS == 989.4e12
+    one_step_s = train.step_flops(g) / peaks.BF16_DENSE_FLOPS
+    assert math.isclose(train.mfu_pct(g, 3, 30 * one_step_s), 10.0)

@@ -127,3 +127,21 @@ def test_device_readers_skip_spans_without_device_time(tracer):
     assert read("mask_ms.sim") is None
     assert program_spans.device_ms_per_unit(
         dict(RECORD, units=[]), ("he.split",)) is None
+
+
+@pytest.mark.parametrize("name", sorted(WANT))
+def test_a_record_keeps_the_events_it_was_read_from(tracer, name):
+    """A traced run's record holds the tracer's events (`record_of`); the
+    readers read the record's, and the live tracer only where a record has
+    none: both give one value."""
+    fill(tracer)
+    live = read(name)
+    run = harness.Run(1, 0.0, True, "cpu")
+    run.window(lambda r: r.units.append(0.5))
+    kept = harness.record_of(run, RECORD["trace"])
+    assert kept["events"] == obs.collect()
+    rec = dict(RECORD, events=kept["events"])
+    obs.configure(enabled=False, trace_path=None, reset=True)
+    assert read(name) is None                      # the tracer is empty
+    assert read(name, rec) == live
+    assert harness.record_of(run, None)["events"] is None

@@ -1,7 +1,8 @@
 """Each traffic mix driven at a smoke size on the CPU through the kernels'
 plain versions: the whole run but the look for a card, its check passing;
 then with the timed path broken underneath, and with each lower-precision
-control, the check failing."""
+control of its kind, the check failing.  A cell's smoke configuration,
+traffic and limits are found by its names (`smoke_cells.py`)."""
 import pathlib
 import sys
 
@@ -11,14 +12,15 @@ import torch
 HERE = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parent.parent / "src"))
 sys.path.insert(0, str(HERE.parent))
+sys.path.insert(0, str(HERE))
 
+import calibrate  # noqa: E402
+import faults  # noqa: E402
 import harness  # noqa: E402
 import run as runner  # noqa: E402
+import smoke_cells  # noqa: E402
 
 SEED = 2 ** 33 + 5
-SMOKE = harness.load_json(HERE / "fixtures" / "smoke.json")
-# limits at the smoke size, set from readings there as the cells' are
-SMOKE_LIMITS = harness.load_json(HERE / "fixtures" / "smoke_limits.json")
 # every traffic mix of the benchmark, with the cell that runs it
 CELLS = {w["traffic"]: w for w in harness.benchmark()["workloads"]}
 
@@ -32,14 +34,12 @@ def one_torch_thread():
 
 
 def smoke_run(traffic_name, trace=False, seconds=0.3, **control):
-    traffic = harness.load_json(HERE.parent / "traffic"
-                                / f"{traffic_name}.json")
     cell = CELLS[traffic_name]
     run = harness.Run(SEED, seconds, trace, "cpu")
-    substitute = control.pop("substitute", None)
-    out, _ = runner.execute(cell, SMOKE, traffic, run, control, substitute)
+    out = runner.execute(cell, smoke_cells.config(cell),
+                         smoke_cells.traffic(traffic_name), run, control)
     correct, checks = runner.judge(out.pop("numbers"),
-                                   SMOKE_LIMITS[cell["name"]])
+                                   smoke_cells.limits(cell["name"]))
     return correct, checks, out
 
 
@@ -62,19 +62,30 @@ def test_traced_run_reads_its_spans(traffic_name):
     assert spans, out["metrics"]
 
 
-CONTROLS = [("sim_k3", {"delta_bits": 20}), ("sim_k3",
-                                             {"substitute": torch.bfloat16}),
-            ("sim_k8", {"delta_bits": 20}),
-            ("service", {"delta_bits": 20}), ("service",
-                                              {"plain_codec": "i8"}),
-            ("client", {"delta_bits": 20}), ("client",
-                                             {"plain_codec": "i8"}),
-            ("client", {"substitute": torch.bfloat16})]
+# each traffic mix with each control and planted fault of its kind, as
+# calibrate.py names them: (traffic, name, Cell arguments, planter)
+CONTROLS = [(t, name, kw, plant) for t in sorted(CELLS)
+            for name, (kw, plant) in
+            calibrate.controls(smoke_cells.kind_of(CELLS[t])).items()
+            if name != "none"]
 
 
-@pytest.mark.parametrize("traffic_name,control", CONTROLS)
-def test_lower_precision_control_is_not_correct(traffic_name, control):
-    correct, checks, _ = smoke_run(traffic_name, **dict(control))
+def test_the_controls_of_the_first_benchmark_stay():
+    pairs = {(t, name) for t, name, _, _ in CONTROLS}
+    assert {("sim_k3", "delta20"), ("sim_k3", "bf16"), ("sim_k8", "delta20"),
+            ("service", "delta20"), ("service", "i8"), ("client", "delta20"),
+            ("client", "i8"), ("client", "bf16")} <= pairs
+    assert dict((n, kw) for t, n, kw, _ in CONTROLS if t == "client") == {
+        "delta20": {"delta_bits": 20}, "i8": {"plain_codec": "i8"},
+        "bf16": {"substitute": "bfloat16"}}
+
+
+@pytest.mark.parametrize("traffic_name,name,control,plant", CONTROLS,
+                         ids=[f"{t}-{n}" for t, n, _, _ in CONTROLS])
+def test_lower_precision_control_is_not_correct(traffic_name, name, control,
+                                                plant):
+    with plant():
+        correct, checks, _ = smoke_run(traffic_name, **control)
     assert not correct, checks
 
 
@@ -117,7 +128,7 @@ def test_altered_answer_is_caught(monkeypatch):
 
     monkeypatch.setattr(secure_agg.SelectiveHEAggregator, "client_recover",
                         altered)
-    for name in ("sim_k3", "client"):
+    for name in ("sim_k3", "client", "fl_k3"):
         correct, checks, _ = smoke_run(name)
         assert not correct, (name, checks)
 
@@ -181,3 +192,37 @@ def test_a_minted_blob_equals_the_programs_rewrite():
     f = fleet.Fleet([blob, blob[:-1]], [10, 20, 30])
     assert f.blob(1, 4) == sim.rewrite_begin(blob[:-1], cid=1, n_samples=20,
                                              rnd=4)
+
+
+@pytest.mark.parametrize("fault", ["unchanged_state",
+                                   "recovered_unchanged"])
+def test_fl_fault_is_caught(fault):
+    """The training round's faults that the kind's FAULTS do not hold
+    (those run with its controls above): a local step that returns its
+    state unchanged; the recovered model returned unchanged."""
+    with getattr(faults, fault)():
+        correct, checks, _ = smoke_run("fl_k3")
+    assert not correct, checks
+
+
+PLANTERS = ["one_step", "half_batch", "one_left_out", "grad_flip",
+            "unchanged_state", "recovered_unchanged"]
+
+
+@pytest.mark.parametrize("fault", PLANTERS)
+def test_a_planted_fault_is_undone(fault):
+    """Each planter puts back what it patched, also when the run inside it
+    raises."""
+    from repro_torch.core import secure_agg
+    from repro_torch.fl import client
+
+    owners = [(client, "adamw_update"), (client.FLClient, "local_train"),
+              (client.FLClient, "_next_batch"),
+              (secure_agg.SelectiveHEAggregator, "server_aggregate"),
+              (secure_agg.SelectiveHEAggregator, "client_recover_params")]
+    before = [getattr(o, n) for o, n in owners]
+    with pytest.raises(RuntimeError):
+        with getattr(faults, fault)():
+            assert [getattr(o, n) for o, n in owners] != before
+            raise RuntimeError("inside")
+    assert [getattr(o, n) for o, n in owners] == before
