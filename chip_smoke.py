@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed S]
 
-Phases 1-12 and seven steps between them (2b, 2c, 3b, 4b, 8b, 9b, 9c); any failure
+Phases 1-12 and eight steps between them (2b, 2c, 2d, 3b, 4b, 8b, 9b, 9c); any failure
 exits non-zero, and without CUDA the script exits non-zero before doing
 anything:
 
@@ -39,6 +39,15 @@ anything:
    complex64 tensor (the decode's output, read at stride 2), with one
    split and two merge launches a size; both kernels and their plain
    versions timed beside the bound of their bytes;
+2d. SSD kernels: the Mamba-2 SSD's forward and backward (kernels/ssd.py)
+   at the fl cell's shape (16 rows of 2,048 tokens, 32 heads of 64, state
+   128, chunk 256) and at step 9c's (zamba2-7b: 1 row of 512, 112 heads
+   of 64, state 64), x, B and C in bfloat16, one launch of each a shape
+   through models/mamba2.py's dispatch, y, h_final and the five gradients
+   of <y, dy> + <h_final, dh_final> held against autograd through the
+   plain version within SSD_MAX_REL_ERR; at the fl shape each direction
+   and its plain version timed beside its bound (float32 FFMA over 66.9
+   TFLOP/s or bytes over 3.35 TB/s);
 3. in-memory round: the paper's Algorithm 1 round at full width --
    make_context() (N=8192, L=2, delta=2^26), keygen, three clients'
    Qwen1.5-0.5B-sized updates (463,987,712 float32 parameters, top 10%
@@ -133,15 +142,19 @@ anything:
    FLTask round of three clients, two local AdamW steps of B = 2 x S = 512
    (two SSD chunks of 256: the inter-chunk recurrence), the HE mask and
    top-10% (8,991 ciphertexts a client): FedAvg error under 1e-2 and the
-   launch counts held, step times and tokens/s printed; then mamba2-370m's
+   launch counts held (the HE kernels', and the SSD's: two forwards and a
+   backward a layer and local step under remat, a forward and two
+   backwards a layer and probe of the sensitivity maps' jvp of a grad),
+   step times and tokens/s printed; then mamba2-370m's
    decode against its prefill (128 + 4 tokens, float32) within
    DECODE_MAX_ERR;
 9c. the hybrid family at full width: zamba2-7b (6,674,390,608 parameters,
    float32 master weights, bf16 compute, remat), one loss and gradient at
    B = 1, S = 512 (loss in (0, 3 ln 32000), every gradient finite, the
-   peak printed), then a prefill of 128 tokens and 4 decode_steps against
-   a prefill of all 132 on the same weights in float32, within
-   DECODE_MAX_ERR.  No AdamW step at this width: its two float32 moments
+   peak printed, two SSD forwards and a backward a layer), then a prefill
+   of 128 tokens and 4 decode_steps against a prefill of all 132 on the
+   same weights in float32, within DECODE_MAX_ERR (an SSD forward a layer
+   and prefill).  No AdamW step at this width: its two float32 moments
    would add 53 GB to the 53 GB of weights and gradients;
 10. the aggregation service (DESIGN.md §14) at full width, on phase 4's
    three blobs (kept on the host since phase 4) and make_context():
@@ -237,7 +250,7 @@ from repro_torch.core.ckks import (  # noqa: E402
 from repro_torch.core.secure_agg import (  # noqa: E402
     AggregatorConfig, ProtectedUpdate, SelectiveHEAggregator)
 from repro_torch.kernels import (  # noqa: E402
-    build, he_agg, lift, mask, ntt, ops, pointwise, ref, tune)
+    build, he_agg, lift, mask, ntt, ops, pointwise, ref, ssd, tune)
 from repro_torch.fl import (  # noqa: E402
     ClientConfig, FLClient, FLRunConfig, FLTask, ThresholdKeyAuthority)
 from repro_torch.launch import fl_step, mesh as he_mesh  # noqa: E402
@@ -248,7 +261,7 @@ from repro_torch.serve import sim as serve_sim  # noqa: E402
 from repro_torch.wire import budget, compress, format as wf  # noqa: E402
 from repro_torch.wire import stream  # noqa: E402
 from repro_torch.data import make_client_streams  # noqa: E402
-from repro_torch.models import sharding, transformer  # noqa: E402
+from repro_torch.models import mamba2, sharding, transformer  # noqa: E402
 from repro_torch.optim import (  # noqa: E402
     AdamWConfig, adamw_init, adamw_update)
 
@@ -378,6 +391,20 @@ HYBRID_ARCH, HYBRID_SEQ, HYBRID_PARAMS = "zamba2-7b", 512, 6_674_390_608
 # top-p mask replaced by a random one of the same share.
 MASK_SIZES = (("hubert-xlarge", 945_808_640), ("mamba2-370m", 368_252_416))
 MASK_SOURCE = "src/repro_torch/kernels/csrc/mask.cu"
+
+# Phase 2d: the fl cell's shape (chipbench/traffic/fl_k3.json, 16 rows of
+# 2,048 tokens; mamba2-370m's 32 heads of 64, state 128, chunk 256) as
+# (batch, seq, heads, head_dim, state, chunk).  y and the gradients are
+# bfloat16 there: two float32 paths that round to bfloat16 at other places
+# differ by about its 2^-9, and the limit is ten times that.
+SSD_SHAPE = (16, 2048, 32, 64, 128, 256)
+# step 2d's shapes held against the plain version: step 9c's zamba2-7b
+# layers (112 heads of 64, state 64) and the fl cell's (last: then timed)
+SSD_CHECK_SHAPES = {"zamba2": (1, HYBRID_SEQ, 112, 64, 64, 256),
+                    "fl": SSD_SHAPE}
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd.cu"
+SSD_MAX_REL_ERR = 2e-2
+FFMA_FLOPS = 66.9e12    # 132 SMs x 128 float32 lanes x 2 x 1.98 GHz
 
 # Published H100 SXM peak (NVIDIA data sheet): HBM3 3.35 TB/s.  Integer
 # work is counted per pipe, each pipe at 64 lanes an SM (Hopper white
@@ -725,6 +752,102 @@ def check_mask_kernels(seed, slots):
         torch.cuda.empty_cache()
     log("mask kernels: " + ", ".join(rows))
     return rows, launched
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: the SSD kernels at the fl cell's shape
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(shape, gen, dev):
+    """x, dt, a, B, C, dy and dh_final of an SSD call at `shape`: x, B, C,
+    dy and dh_final in bfloat16."""
+    bsz, s, nh, hd, st, _ = shape
+    draw = lambda *sh: torch.randn(*sh, generator=gen, device=dev)
+    x, b, c = (draw(bsz, s, nh, hd).bfloat16(), draw(bsz, s, st).bfloat16(),
+               draw(bsz, s, st).bfloat16())
+    dt = torch.rand(bsz, s, nh, generator=gen, device=dev) * 0.1 + 1e-3
+    a = -torch.arange(1, nh + 1, device=dev, dtype=torch.float32)
+    dy = draw(bsz, s, nh, hd).bfloat16()
+    dhf = draw(bsz, nh, hd, st).bfloat16()
+    return x, dt, a, b, c, dy, dhf
+
+
+def check_ssd_against_plain(what, shape, inputs):
+    """y, h_final and the gradients of <y, dy> + <h_final, dh_final>
+    through models/mamba2.py's dispatch (one launch each way) against
+    autograd through the plain version; returns the relative L2 errors."""
+    x, dt, a, b, c, dy, dhf = inputs
+    q = shape[-1]
+
+    def run(fn):
+        ins = [t.detach().clone().requires_grad_() for t in (x, dt, a, b, c)]
+        y, hf = fn(*ins, q)
+        return (y, hf, *torch.autograd.grad((y, hf), ins, (dy, dhf)))
+
+    ops.reset_launch_counts()
+    got = run(mamba2.ssd_chunked)
+    torch.cuda.synchronize()
+    check_launches(f"ssd_kernels {what}", ops.launch_counts(),
+                   {"ssd_fwd": 1, "ssd_bwd": 1})
+    want = run(mamba2.ssd_chunked_plain)
+    names = ("y", "h_final", "dx", "ddt", "da", "db", "dc")
+    errs = {n: float((g.float() - w.float()).norm() / w.float().norm())
+            for n, g, w in zip(names, got, want)}
+    log(f"ssd_kernels {what} {shape}: relative L2 against the plain "
+        "version: " + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    if max(errs.values()) > SSD_MAX_REL_ERR:
+        raise AssertionError(f"ssd_kernels {what}: {errs} over "
+                             f"{SSD_MAX_REL_ERR}")
+    return errs
+
+
+def check_ssd_kernels(seed):
+    """Returns ({name: row of the kernels JSON line}, the phase's launch
+    counts)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    counts = {"ssd_fwd": 0, "ssd_bwd": 0}
+    for what, shape in SSD_CHECK_SHAPES.items():
+        inputs = ssd_inputs(shape, gen, dev)
+        errs = check_ssd_against_plain(what, shape, inputs)
+        counts = {k: v + ops.launch_counts()[k] for k, v in counts.items()}
+    x, dt, a, b, c, dy, _ = inputs   # the fl cell's (the last), timed
+    bsz, s, nh, hd, st, q = SSD_SHAPE
+    pins = [t.detach().clone().requires_grad_() for t in (x, dt, a, b, c)]
+    _, _, hbuf, cum = ssd.fwd(x, dt, a, b, c, q)
+    yp, _ = mamba2.ssd_chunked_plain(*pins, q)   # a graph kept for the timing
+    cost = ssd.cost(bsz, s, nh, hd, st, q)
+    cases = {
+        "ssd_fwd": (lambda: ssd.fwd(x, dt, a, b, c, q),
+                    lambda: mamba2.ssd_chunked_plain(x, dt, a, b, c, q),
+                    cost["fwd_flops"], cost["fwd_bytes"]),
+        "ssd_bwd": (lambda: ssd.bwd(x, dt, a, b, c, hbuf, cum, q, dy, None,
+                                    False),
+                    lambda: torch.autograd.grad(yp, pins, dy,
+                                                retain_graph=True),
+                    cost["bwd_flops"], cost["bwd_bytes"]),
+    }
+    rows = {}
+    for name, (kern, plain, flops, nbytes) in cases.items():
+        ms = time_ms(kern, 10)
+        with torch.no_grad() if name == "ssd_fwd" else contextlib.nullcontext():
+            plain_ms = time_ms(plain, 3)
+        by_flops, by_bytes = flops / FFMA_FLOPS, nbytes / PEAK_BYTES_PER_S
+        bound_ms = 1e3 * max(by_flops, by_bytes)
+        pipe = "float32 FFMA" if by_flops >= by_bytes else "bytes"
+        rows[name] = {"name": name, "route": "cuda", "source": SSD_SOURCE,
+                      "replaces": None, "launches": None, "max_abs_err": None,
+                      "rel_err": errs, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": pipe,
+                      "bound_pipe": pipe, "library_ms": None,
+                      "flops": flops, "bytes": nbytes}
+        log(f"kernel {name} at {SSD_SHAPE}: ms={ms:.4f}  plain_ms="
+            f"{plain_ms:.4f}  bound_ms={bound_ms:.4f} (set by {pipe}: "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB)")
+    del x, b, c, dy, hbuf, cum, yp, pins
+    torch.cuda.empty_cache()
+    return rows, counts
 
 
 def check_ntt4_configs(ctx, x, rows):
@@ -2410,9 +2533,13 @@ def ssm_fl(seed, cfg, ctx, dev, n_params):
         raise AssertionError(f"ssm_fl: not {n_params} parameters")
     err = check_recovered(f"ssm_fl ({cfg.name})", task.global_params,
                           probe.take(), shapes=shapes)
+    n_steps, n_probes = N_CLIENTS * LOCAL_STEPS, N_CLIENTS * SENS_PROBES
+    remat = 2 if cfg.remat else 1
     check_launches("ssm_fl", counts, {
-        k: want["keys"][k] + want["mask"][k] + want["in_memory_round"][k]
-        for k in KERNELS})
+        **{k: want["keys"][k] + want["mask"][k] + want["in_memory_round"][k]
+           for k in KERNELS},
+        "ssd_fwd": cfg.n_layers * (remat * n_steps + n_probes),
+        "ssd_bwd": cfg.n_layers * (n_steps + 2 * n_probes)})
     n_chunks = task.aggregator.part.n_chunks
     if n_chunks != -(-int(round(P_RATIO * n_params)) // ctx.slots):
         raise AssertionError(f"ssm_fl: {n_chunks} ciphertexts a client")
@@ -2442,10 +2569,14 @@ def hybrid_gradients(seed, arch, dev, n_params):
                                           batch_size=1, seed=seed)[0]
                       .next_batch(), dev)
     torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
     t = time.perf_counter()
     loss, grads = models.value_and_grad(model.loss_fn)(params, batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
+    check_launches("hybrid_grad", ops.launch_counts(), {
+        "ssd_fwd": (2 if cfg.remat else 1) * cfg.n_layers,
+        "ssd_bwd": cfg.n_layers})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     loss = float(loss)
     finite = all(bool(torch.isfinite(g).all()) for g in leaves(grads))
@@ -2457,7 +2588,10 @@ def hybrid_gradients(seed, arch, dev, n_params):
             and finite):
         raise AssertionError(f"hybrid: loss {loss} or gradients out of "
                              "range")
+    ops.reset_launch_counts()
     err = decode_check(seed, dev, arch, params)
+    check_launches("hybrid_decode", ops.launch_counts(),
+                   {"ssd_fwd": 2 * cfg.n_layers, "ssd_bwd": 0})
     return {"loss": loss, "grad_s": dt, "peak_gib": peak, "decode_err": err}
 
 
@@ -3060,11 +3194,13 @@ def main():
     torch.cuda.empty_cache()
     mask_rows, mask_launches = check_mask_kernels(args.seed, slots)
     rows.update(mask_rows)
+    ssd_rows, ssd_launches = check_ssd_kernels(args.seed)
+    rows.update(ssd_rows)
 
     best4 = tuner_sweep(args.seed)
     torch.cuda.empty_cache()
 
-    by_path = {"mask_kernels": mask_launches}
+    by_path = {"mask_kernels": mask_launches, "ssd_kernels": ssd_launches}
     with traced("in_memory"):
         by_path["in_memory"], state = in_memory_round(args.seed)
     by_path["ntt4_round"] = ntt4_round(args.seed, state, best4)

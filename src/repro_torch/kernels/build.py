@@ -25,7 +25,7 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("ntt", "ntt4", "pointwise", "he_agg", "lift", "mask")
+SOURCES = ("ntt", "ntt4", "pointwise", "he_agg", "lift", "mask", "ssd")
 # -split-compile=0 runs nvcc's optimizer on every CPU, so that ntt4.cu's 26
 # kernels build within ntt.cu's time; the other sources' SASS is the same
 # with it as without
@@ -64,6 +64,10 @@ SIGNATURES = {
     "mask": {
         "mask_split_launch": (_P, _P, _P, _LL, _LL, _LL, _P, _P, _P),
         "mask_merge_launch": (_P, _P, _LL, _P, _P, _P, _LL, _P),
+    },
+    "ssd": {
+        "ssd_fwd_launch": (_I,) * 7 + (_P,) * 12,
+        "ssd_bwd_launch": (_I,) * 7 + (_P,) * 24,
     },
 }
 

@@ -18,7 +18,9 @@ with the same bits either way.  The limb-wise helpers (`mod_add`,
 `mod_sub`, `mod_neg`, `to_mont`, `from_mont`, `mont_mul`) have no kernel of
 their own and are plain torch ops.  The selection mask's split and merge
 (`kernels/mask.py`) are called from `core/packing.py`, not from here;
-`KERNELS` lists them so that `launch_counts()` counts them too.
+`KERNELS` lists them so that `launch_counts()` counts them too, as it
+lists the Mamba-2 SSD's forward and backward (`kernels/ssd.py`, called
+from `models/mamba2.py`).
 
 While obs is enabled (`obs.configure(enabled=True)`), every op with a kernel
 goes through `obs.timed_kernel`: synchronized before and after, timed,
@@ -40,6 +42,7 @@ from repro_torch.kernels import mask as _mask
 from repro_torch.kernels import ntt as _ntt
 from repro_torch.kernels import pointwise as _pointwise
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import tune as _tune
 
 # op name -> the wrapper whose `launches` counts its kernel
@@ -55,6 +58,8 @@ KERNELS = {
     "mod_lift": _lift.mod_lift_fused,
     "mask_split": _mask.mask_split,
     "mask_merge": _mask.mask_merge,
+    "ssd_fwd": _ssd.ssd_fwd,
+    "ssd_bwd": _ssd.ssd_bwd,
 }
 
 

@@ -10,8 +10,11 @@ its float sums in another order.  Decode is the O(1) recurrent update.
 
 Projections are separate weights (z/x/B/C/dt), as in JAX, and the
 `sharding.constrain` calls (the identity here) sit where JAX's do.  The SSD
-scan and the causal conv are plain torch ops: JAX computes them outside any
-Pallas kernel too.  cfg.remat wraps each block in
+scan (`ssd_chunked`) runs on CUDA tensors as hand-written kernels
+(`kernels/ssd.py`, which JAX has no counterpart of: it computes the scan
+with einsums), on any other tensor as the plain torch ops of
+`ssd_chunked_plain`; the causal conv is plain torch ops.  cfg.remat wraps
+each block in
 `torch.utils.checkpoint.checkpoint(use_reentrant=False)`; torch.func
 refuses it, so a sensitivity loss runs with remat off (models/transformer).
 """
@@ -23,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
+from repro_torch.kernels import ssd as _ssd_kernels
 from repro_torch.models import layers as L
 from repro_torch.models import sharding
 from repro_torch.models.config import ModelConfig
@@ -86,7 +91,21 @@ def _softplus(x):
 
 
 def ssd_chunked(x, dtv, a, b, c, chunk: int, h0=None):
-    """SSD over a full sequence.
+    """SSD over a full sequence (`ssd_chunked_plain`'s arguments and
+    results), on the device's path: CUDA tensors through the kernels of
+    `kernels/ssd.py` (which raise on a shape they do not take), under
+    autograd and under the sensitivity maps' torch.func grad and jvp alike;
+    any other tensor (CPU, or `meta` in the dry-run) through
+    `ssd_chunked_plain`.  The span `model.ssd_fwd` times the forward on
+    either path (`model.ssd_bwd` the kernels' backward)."""
+    with obs.span("model.ssd_fwd", device=True):
+        if x.device.type == "cuda":
+            return _ssd_kernels.ssd(x, dtv, a, b, c, chunk, h0)
+        return ssd_chunked_plain(x, dtv, a, b, c, chunk, h0)
+
+
+def ssd_chunked_plain(x, dtv, a, b, c, chunk: int, h0=None):
+    """SSD over a full sequence, as plain torch ops.
 
     x:   [B, S, nh, hd]   (conv'd, activated)
     dtv: [B, S, nh]       (softplus'd timestep)
@@ -98,6 +117,8 @@ def ssd_chunked(x, dtv, a, b, c, chunk: int, h0=None):
     With h0 the first chunk's outputs read it (C_q exp(cum_q) . h0), as the
     recurrence says; the JAX package's first chunk reads zeros there and
     only its final state carries h0 (no caller of either passes h0).
+    It computes in float32, or in float64 for float64 inputs (the kernels'
+    tests' reference).
     """
     bsz, s, nh, hd = x.shape
     st = b.shape[-1]
@@ -105,7 +126,7 @@ def ssd_chunked(x, dtv, a, b, c, chunk: int, h0=None):
     n = s // q
     if n * q != s:
         raise ValueError(f"sequence {s} is not a multiple of chunk {q}")
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)
     xc = x.reshape(bsz, n, q, nh, hd)
     dtc = dtv.reshape(bsz, n, q, nh).to(f32)
     bc = b.reshape(bsz, n, q, st).to(f32)

@@ -85,7 +85,8 @@ def test_kernels_match_plain_versions(cuda, n):
                                    "weighted_accum": 0,
                                    "weighted_accum_chunks": 0,
                                    "mod_lift": 0, "mask_split": 0,
-                                   "mask_merge": 0}
+                                   "mask_merge": 0, "ssd_fwd": 0,
+                                   "ssd_bwd": 0}
 
 
 @pytest.mark.parametrize("n", [256, 8192])
@@ -179,7 +180,7 @@ def test_ntt_ops_resolve_to_the_4step_kernels_on_the_card(cuda):
             "ntt_fwd": 1, "ntt_inv": 1, "ntt4_fwd": 1, "ntt4_inv": 1,
             "mul_add": 0, "weighted_sum": 0, "weighted_accum": 0,
             "weighted_accum_chunks": 0, "mod_lift": 0, "mask_split": 0,
-            "mask_merge": 0}
+            "mask_merge": 0, "ssd_fwd": 0, "ssd_bwd": 0}
         gen = torch.Generator(device=cuda).manual_seed(1)
         res = tune.sweep_op("ntt_inv", ctx, 3, gen, reps=2)
         assert res.platform == "cuda" and res.n_candidates == 4
@@ -486,7 +487,8 @@ def test_sharded_round_on_the_card_matches_the_cpu(cuda):
                       "ntt4_fwd": 0, "ntt4_inv": 0,
                       "mul_add": 4 * 2 + 4 + 4, "weighted_sum": 8,
                       "weighted_accum": 8, "weighted_accum_chunks": 8,
-                      "mod_lift": 0, "mask_split": 0, "mask_merge": 0}
+                      "mod_lift": 0, "mask_split": 0, "mask_merge": 0,
+                      "ssd_fwd": 0, "ssd_bwd": 0}
 
 
 def _threshold_round(ctx, draws, vals):

@@ -321,7 +321,8 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
                                    "weighted_accum": 0,
                                    "weighted_accum_chunks": 0,
                                    "mod_lift": 0, "mask_split": 0,
-                                   "mask_merge": 0}
+                                   "mask_merge": 0, "ssd_fwd": 0,
+                                   "ssd_bwd": 0}
 
 
 @pytest.mark.parametrize("op", ["ntt_fwd", "ntt_inv", "mul_add",
